@@ -1,0 +1,40 @@
+"""Carry weights from the JAX package's arrays into PyTorch tensors.
+
+Anything ``np.asarray`` accepts (a JAX array, a numpy array, a nested
+list) converts. For the matching-pursuit encoder the dictionary is the
+whole model.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .device import default_device
+
+
+def dictionary_from_jax(d, device=None) -> torch.Tensor:
+    """An (N, A) or (N, C, A) dictionary as a float32 tensor on
+    ``default_device(device)`` (CUDA unless ``"cpu"`` is asked for)."""
+    arr = np.asarray(d, dtype=np.float32)
+    if arr.ndim not in (2, 3):
+        raise ValueError(f"a dictionary is (N, A) or (N, C, A), got shape {arr.shape}")
+    return torch.from_numpy(arr.copy()).to(default_device(device))
+
+
+def params_from_numpy(tree, device=None):
+    """Convert every array leaf of a nested dict / list / tuple to a tensor
+    on ``default_device(device)``, keeping the structure and each leaf's
+    dtype. Other leaves (strings, None) pass through."""
+    dev = default_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(conv(v) for v in node)
+        if node is None or isinstance(node, str):
+            return node
+        return torch.from_numpy(np.array(node)).to(dev)
+
+    return conv(tree)

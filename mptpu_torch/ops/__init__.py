@@ -1,0 +1,20 @@
+"""L0 ops of the matching-pursuit path (counterpart of ``mptpu.ops``)."""
+
+from .fft import n_fft_coeffs, next_pow2, rfft, irfft, fft_convolve, simple_fft_convolve
+from .correlation import mp_correlate, torch_style_conv
+from .norms import unit_norm, max_norm, limit_norm, example_norm
+
+__all__ = [
+    "n_fft_coeffs",
+    "next_pow2",
+    "rfft",
+    "irfft",
+    "fft_convolve",
+    "simple_fft_convolve",
+    "mp_correlate",
+    "torch_style_conv",
+    "unit_norm",
+    "max_norm",
+    "limit_norm",
+    "example_norm",
+]

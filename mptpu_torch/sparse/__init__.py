@@ -1,0 +1,38 @@
+"""Greedy matching pursuit, naive and fast, with its CUDA kernels
+(counterpart of ``mptpu.sparse``; only the ported names)."""
+
+from .matching_pursuit import (
+    SparseCodeResult,
+    sparse_code,
+    scatter_events,
+    reconstruct_from_events,
+)
+from .fast_mp import sparse_code_fast, dictionary_gram, fast_geometry, encode_state
+from .cuda_fused_mp import (
+    StepEvents,
+    cuda_fused_step,
+    cuda_fused_encode,
+    fused_step_plain,
+    fused_encode_plain,
+    fused_step_applicable,
+)
+from .cuda_mp import cuda_boundary_update, boundary_update_plain
+
+__all__ = [
+    "SparseCodeResult",
+    "sparse_code",
+    "scatter_events",
+    "reconstruct_from_events",
+    "sparse_code_fast",
+    "dictionary_gram",
+    "fast_geometry",
+    "encode_state",
+    "StepEvents",
+    "cuda_fused_step",
+    "cuda_fused_encode",
+    "fused_step_plain",
+    "fused_encode_plain",
+    "fused_step_applicable",
+    "cuda_boundary_update",
+    "boundary_update_plain",
+]

@@ -1,0 +1,244 @@
+"""Fused greedy fast-MP step and whole encode (counterpart of
+``mptpu/sparse/pallas_fused_mp.py``).
+
+One greedy step for every batch item, in place on the correlation map
+``fm`` (B, N, W), the block-max table ``bm`` (B, N, n_blocks or
+lane-padded) and the padded residual rows (B, n_samples + A):
+
+1. first-flat-index argmax over the item's block-max table;
+2. refine inside the winning block (smallest lane wins);
+3. subtract ``value * d2[atom]`` from the residual, zero it past the end;
+4. if the event clipped (or always, without ``gate_tail``): the exact
+   tail ``tail[a, p] = sum_k d2[a, k] * residual[n - A + p + k]``;
+5. ``fm[b, :, ustart : ustart + 2A] -= value * gram_p[atom]``;
+6. the tail overwrites ``fm[b, :, tail_start : tail_start + A]``;
+7. the maxima of every window block and tail block are taken again.
+
+``cuda_fused_step`` launches that once per step; ``cuda_fused_encode``
+runs all ``n_steps`` in one launch. Their plain PyTorch versions
+(``fused_step_plain``, ``fused_encode_plain``) sit here too; a CPU tensor
+takes them. On a CUDA tensor the wrappers launch the kernel or raise.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from .. import kernels
+from ..device import no_tf32
+
+
+class StepEvents(NamedTuple):
+    """Events of one step (B,) or of a whole encode (n_steps, B)."""
+
+    atoms: torch.Tensor      # int32
+    positions: torch.Tensor  # int32
+    values: torch.Tensor     # float32
+
+
+def kernels_usable(device) -> bool:
+    """Whether the fused step has an implementation for tensors on
+    ``device``: the plain version on the CPU, the kernels on CUDA."""
+    return torch.device(device).type in ("cpu", "cuda")
+
+
+def fused_step_applicable(
+    n_samples: int, atom_size: int, block: int, pad: int, n_atoms: int, device
+) -> bool:
+    """The same static gate as ``mptpu``'s
+    (``pallas_fused_mp.py:1815-1834``), with "Pallas available" replaced
+    by "kernels usable for ``device``"."""
+    if not kernels_usable(device):
+        return False
+    tail_start = pad + n_samples - atom_size
+    upd_blocks = (2 * atom_size - 1 + block - 1) // block + 1
+    return (
+        atom_size % block == 0
+        and atom_size % 128 == 0
+        and block % 128 == 0
+        and n_samples % 128 == 0
+        and tail_start % block == 0
+        and (atom_size & (atom_size - 1)) == 0
+        and n_atoms % 8 == 0
+        and upd_blocks * block >= 2 * atom_size
+    )
+
+
+# ---- pieces shared with the torch-op engine in fast_mp.py
+
+
+def _refine(fm, atom, blk, block: int, pad: int):
+    """(value, position) of the first maximum inside block ``blk`` of row
+    ``atom`` of each item's map."""
+    rows = torch.arange(fm.shape[0], device=fm.device)[:, None]
+    cols = blk[:, None] * block + torch.arange(block, device=fm.device)
+    seg = fm[rows, atom[:, None], cols]
+    li = torch.argmax(seg, dim=-1)
+    value = seg.gather(1, li[:, None])[:, 0]
+    return value, blk * block + li - pad
+
+
+def _subtract_residual(residual, d2, atom, position, value, n_samples: int) -> None:
+    """In place: ``residual[b, p:p+A] -= value * d2[atom]``, then zero past
+    ``n_samples``. Product and difference round separately."""
+    rows = torch.arange(residual.shape[0], device=residual.device)[:, None]
+    cols = position[:, None] + torch.arange(d2.shape[-1], device=residual.device)
+    prod = value[:, None] * d2[atom]
+    residual[rows, cols] = residual[rows, cols] - prod
+    residual[:, n_samples:] = 0.0
+
+
+def _subtract_window(fm, gram_rows, ustart, value) -> None:
+    """In place: ``fm[b, :, u : u + width] -= value * gram_rows[b]`` with
+    ``u = ustart[b]`` and ``gram_rows`` (B, N, width)."""
+    B, N, width = gram_rows.shape
+    dev = fm.device
+    idx = (
+        torch.arange(B, device=dev)[:, None, None],
+        torch.arange(N, device=dev)[None, :, None],
+        (ustart[:, None] + torch.arange(width, device=dev))[:, None, :],
+    )
+    prod = value[:, None, None] * gram_rows
+    fm[idx] = fm[idx] - prod
+
+
+def _tail(residual, d2, n_samples: int):
+    """Exact tail (B, N, A): ``sum_k d2[a, k] * residual[b, n - A + p + k]``."""
+    A = d2.shape[-1]
+    seg = residual[:, n_samples - A : n_samples + A - 1]
+    with no_tf32():
+        return F.conv1d(seg[:, None, :], d2[:, None, :])
+
+
+def _repair_blocks(fm, bm, first_blk, n_blk: int, block: int) -> None:
+    """In place: ``bm[b, :, first_blk[b] + k]`` = max of that map block,
+    for k < n_blk."""
+    B, N, _ = fm.shape
+    dev = fm.device
+    rows = torch.arange(B, device=dev)[:, None, None]
+    atoms = torch.arange(N, device=dev)[None, :, None]
+    cols = first_blk[:, None] * block + torch.arange(n_blk * block, device=dev)
+    maxima = fm[rows, atoms, cols[:, None, :]].reshape(B, N, n_blk, block).amax(-1)
+    bm[rows, atoms, (first_blk[:, None] + torch.arange(n_blk, device=dev))[:, None, :]] = maxima
+
+
+# ---- plain versions
+
+
+def fused_step_plain(
+    fm, bm, residual, d2, gram_p, *, n_samples: int, atom_size: int, block: int,
+    pad: int, n_blocks: int, upd_blocks: int, tail_start: int, gate_tail: bool = True,
+) -> StepEvents:
+    """One fused step in PyTorch ops, in place on ``fm``, ``bm`` and
+    ``residual``; the same function as ``cuda_fused_step``."""
+    B = fm.shape[0]
+    A = atom_size
+    nbt = bm.shape[-1]
+    midx = torch.argmax(bm.reshape(B, -1), dim=-1)   # lane pads never win
+    atom = midx // nbt
+    value, position = _refine(fm, atom, midx % nbt, block, pad)
+    _subtract_residual(residual, d2, atom, position, value, n_samples)
+
+    ustart = position + pad - (A - 1)
+    _subtract_window(fm, gram_p[atom], ustart, value)
+    clipped = position > n_samples - A if gate_tail else torch.ones_like(position, dtype=torch.bool)
+    sel = clipped.nonzero()[:, 0]
+    if sel.numel():
+        tail = _tail(residual[sel], d2, n_samples)
+        fm[sel, :, tail_start : tail_start + A] = tail
+    ws_blk = torch.clamp(ustart // block, max=n_blocks - upd_blocks)
+    _repair_blocks(fm, bm, ws_blk, upd_blocks, block)
+    if sel.numel():
+        t0 = tail_start // block
+        bm[sel, :, t0 : t0 + A // block] = tail.reshape(
+            sel.numel(), -1, A // block, block
+        ).amax(-1)
+    return StepEvents(atom.to(torch.int32), position.to(torch.int32), value)
+
+
+def fused_encode_plain(
+    fm, bm, residual, d2, gram_p, *, n_steps: int, gate_tail: bool = True, **geometry
+) -> StepEvents:
+    """``n_steps`` of ``fused_step_plain``; events stacked (n_steps, B)."""
+    steps = [
+        fused_step_plain(fm, bm, residual, d2, gram_p, gate_tail=gate_tail, **geometry)
+        for _ in range(n_steps)
+    ]
+    return StepEvents(*(torch.stack(x) for x in zip(*steps)))
+
+
+# ---- kernel wrappers
+
+
+def _check_step_args(fm, bm, residual, d2, gram_p, n_samples, atom_size, block, pad,
+                     n_blocks, upd_blocks, tail_start):
+    B, N, W = fm.shape
+    A = atom_size
+    dev = fm.device
+    if W != n_blocks * block or not fused_step_applicable(n_samples, A, block, pad, N, dev):
+        raise ValueError("shapes fail the fused-step gate")
+    kernels.check("fm", fm, (B, N, W), device=dev)
+    kernels.check("bm", bm, (B, N, bm.shape[-1]), device=dev)
+    if bm.shape[-1] < n_blocks:
+        raise ValueError("bm: fewer columns than map blocks")
+    kernels.check("residual", residual, (B, n_samples + A), device=dev)
+    kernels.check("d2", d2, (N, A), device=dev)
+    kernels.check("gram_p", gram_p, (N, N, 2 * A), device=dev)
+    return B, N, W
+
+
+def _launch_step(name, counter, fm, bm, residual, d2, gram_p, n_out, gate_tail, geometry,
+                 *extra) -> StepEvents:
+    B, N, W = _check_step_args(fm, bm, residual, d2, gram_p, **geometry)
+    A = geometry["atom_size"]
+    dev = fm.device
+    tail = torch.empty((B, N, A), dtype=torch.float32, device=dev)
+    atoms = torch.empty(n_out, dtype=torch.int32, device=dev)
+    positions = torch.empty(n_out, dtype=torch.int32, device=dev)
+    values = torch.empty(n_out, dtype=torch.float32, device=dev)
+    kernels.launch(
+        name, counter,
+        *(t.data_ptr() for t in (fm, bm, residual, d2, gram_p, tail, atoms, positions, values)),
+        B, N, A, W, geometry["n_samples"], geometry["block"], geometry["pad"],
+        geometry["n_blocks"], bm.shape[-1], geometry["upd_blocks"], geometry["tail_start"],
+        int(gate_tail), *extra,
+    )
+    return StepEvents(atoms, positions, values)
+
+
+def cuda_fused_step(
+    fm, bm, residual, d2, gram_p, *, gate_tail: bool = True, **geometry
+) -> StepEvents:
+    """One greedy step for every item, in place on ``fm``, ``bm`` and
+    ``residual``. ``geometry``: n_samples, atom_size, block, pad, n_blocks,
+    upd_blocks, tail_start (``fast_mp.fast_geometry``). Events are (B,).
+
+    CPU tensors take ``fused_step_plain``; CUDA tensors launch
+    ``csrc/mp_fused.cu:mp_fused_step`` (one thread block per item)."""
+    if fm.device.type == "cpu":
+        return fused_step_plain(fm, bm, residual, d2, gram_p, gate_tail=gate_tail, **geometry)
+    return _launch_step("mp_fused_step", "cuda_fused_step", fm, bm, residual, d2, gram_p,
+                        (fm.shape[0],), gate_tail, geometry)
+
+
+def cuda_fused_encode(
+    fm, bm, residual, d2, gram_p, *, n_steps: int, gate_tail: bool = True, **geometry
+) -> StepEvents:
+    """The whole ``n_steps`` greedy loop, in place on ``fm``, ``bm`` and
+    ``residual``; events are (n_steps, B).
+
+    CPU tensors take ``fused_encode_plain``; CUDA tensors launch
+    ``csrc/mp_fused.cu:mp_fused_encode`` once (one thread block per item,
+    looping over the steps with its residual row in shared memory, so
+    n_samples + 17 * atom_size floats must fit in 227 KB)."""
+    if fm.device.type == "cpu":
+        return fused_encode_plain(
+            fm, bm, residual, d2, gram_p, n_steps=n_steps, gate_tail=gate_tail, **geometry
+        )
+    # a residual row too long for shared memory fails the launcher's
+    # cudaFuncSetAttribute, which the wrapper raises on
+    return _launch_step("mp_fused_encode", "cuda_fused_encode", fm, bm, residual, d2, gram_p,
+                        (n_steps, fm.shape[0]), gate_tail, geometry, n_steps)

@@ -1,0 +1,170 @@
+"""mptpu_torch's fast MP engine against mptpu's on the same numpy inputs.
+
+mptpu runs on JAX-CPU with its Pallas kernels in interpret mode, exactly
+as tests/test_fast_mp.py runs them; the port runs on device="cpu", where
+every kernel wrapper takes its plain PyTorch version. Signals are planted
+atom sums with decisive maxima and clipped plants (tests/test_fast_mp.py
+:209-226). Tolerances are tests/test_fast_mp.py:77-87's: events
+identical, values rtol 1e-4 / atol 1e-5, residual rtol 1e-3 / atol 1e-5;
+the gram is a convolution (rtol 1e-5 / atol 1e-5).
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from mptpu import sparse as jsp
+from mptpu.ops import unit_norm as j_unit_norm
+from mptpu.sparse.pallas_fused_mp import fused_step_applicable as j_applicable
+from mptpu.sparse.pallas_mp import pallas_boundary_update
+from mptpu_torch import kernels
+from mptpu_torch import sparse as tsp
+from mptpu_torch.sparse.fast_mp import fast_geometry
+
+RNG = np.random.default_rng(31)
+D16 = RNG.standard_normal((16, 128)).astype(np.float32)
+D8 = RNG.standard_normal((8, 128)).astype(np.float32)
+
+
+def planted(d, batch, n):
+    """tests/test_fast_mp.py:216-226 for any (d, batch, n)."""
+    du = np.asarray(j_unit_norm(jnp.asarray(d)))
+    n_atoms, A = du.shape
+    sig = np.zeros((batch, 1, n), np.float32)
+    for i in range(batch):
+        for k in range(8):
+            pos = (37 + 211 * (i + 1) * (k + 1)) % (n - A)
+            sig[i, 0, pos : pos + A] += du[(3 * i + k) % n_atoms] * (5.0 * 0.8**k)
+        sig[i, 0, -64:] += du[(7 * i) % n_atoms, :64] * 4.0
+    return sig
+
+
+def boundary_heavy():
+    """tests/test_fast_mp.py:163-172: several clipped plants per item."""
+    du = np.asarray(j_unit_norm(jnp.asarray(D8)))
+    sig = np.zeros((3, 1, 512), np.float32)
+    sig[0, 0, 448:] = du[2, :64] * 5.0
+    sig[0, 0, 500:] += du[4, :12] * 4.0
+    sig[0, 0, 100:228] = du[5] * 3.0
+    sig[1, 0, 384:] = du[1] * 2.0
+    sig[1, 0, 400:] += du[7, :112] * 6.0
+    sig[1, 0, 0:128] = du[3] * 1.5
+    sig[2, 0, 420:] = du[6, :92] * 7.0
+    sig[2, 0, 200:328] = du[0] * 2.0
+    return sig
+
+
+def assert_same(j, t):
+    np.testing.assert_array_equal(t.atom_indices.numpy(), np.asarray(j.atom_indices))
+    np.testing.assert_array_equal(t.positions.numpy(), np.asarray(j.positions))
+    np.testing.assert_allclose(t.values.numpy(), np.asarray(j.values), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(t.residual.numpy(), np.asarray(j.residual), rtol=1e-3, atol=1e-5)
+
+
+def run_both(d, sig, n_steps, **kw):
+    j = jsp.sparse_code_fast(jnp.asarray(sig), jnp.asarray(d), n_steps=n_steps, **kw)
+    t = tsp.sparse_code_fast(torch.from_numpy(sig), torch.from_numpy(d), n_steps=n_steps, **kw)
+    return j, t
+
+
+def test_dictionary_gram_matches_mptpu():
+    d = np.array(j_unit_norm(jnp.asarray(D16)))
+    j = jsp.dictionary_gram(jnp.asarray(d))
+    t = tsp.dictionary_gram(torch.from_numpy(d))
+    assert t.shape == (16, 16, 255)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(),
+        dict(block=128, block_argmax=True),
+        dict(block=128, block_argmax=True, use_pallas=True),
+        dict(block=128, use_pallas=True),
+        dict(block=128, fused=True, pipelined=False),
+        dict(block=128, fused=True, pipelined=False, gate_tail=False),
+        dict(block=128, fused=True, whole_loop=True),
+        dict(block=128, fused=True, whole_loop=True, gate_tail=False, depth=3),
+    ],
+    ids=["flat", "block_argmax", "pallas_tail", "pallas_tail_flat", "fused_step",
+         "fused_step_ungated", "whole_loop", "whole_loop_ungated"],
+)
+def test_sparse_code_fast_modes_match_mptpu(kw):
+    sig = planted(D16, 4, 1024)
+    j, t = run_both(D16, sig, 9, **kw)
+    assert_same(j, t)
+
+
+@pytest.mark.parametrize("gate_tail", [True, False])
+def test_fused_boundary_heavy_matches_mptpu_and_naive(gate_tail):
+    sig = boundary_heavy()
+    j, t = run_both(D8, sig, 8, block=128, fused=True, pipelined=False, gate_tail=gate_tail)
+    assert (t.positions > 512 - 128).sum() >= 3
+    assert_same(j, t)
+    naive = tsp.sparse_code(torch.from_numpy(sig), torch.from_numpy(D8), n_steps=8)
+    assert torch.equal(naive.atom_indices, t.atom_indices)
+    assert torch.equal(naive.positions, t.positions)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(pipelined=True), dict(whole_loop=True, lane_table=True)],
+    ids=["pipelined_step", "lane_table"],
+)
+def test_unported_kernels_take_the_plain_version_on_cpu(kw):
+    """The pipelined step (K4) and the lane-table encode (K5) are pinned
+    bit-identical to the per-step kernel (tests/test_fast_mp.py:137-155,
+    260-293); on a CPU tensor the port takes the same plain version."""
+    sig = planted(D16, 3, 1024)
+    j, t = run_both(D16, sig, 7, block=128, fused=True, **kw)
+    assert_same(j, t)
+    _, per_step = run_both(D16, sig, 7, block=128, fused=True, pipelined=False)
+    assert torch.equal(t.residual, per_step.residual)
+
+
+def test_whole_loop_batch_rule_falls_back_to_per_step():
+    """whole_loop needs depth + 1 <= batch <= 128 (fast_mp.py:170)."""
+    sig = planted(D16, 2, 1024)
+    j, t = run_both(D16, sig, 7, block=128, fused=True, whole_loop=True)
+    assert_same(j, t)
+
+
+def test_boundary_update_plain_matches_pallas_kernel():
+    B, N, A, block = 2, 16, 128, 128
+    g = fast_geometry(1024, A, block)
+    fm = RNG.standard_normal((B, N, g.W)).astype(np.float32)
+    bm = RNG.standard_normal((B, N, g.n_blocks)).astype(np.float32)
+    windows = RNG.standard_normal((B, A, A)).astype(np.float32)
+    d = np.array(j_unit_norm(jnp.asarray(D16)))
+    jf, jb = pallas_boundary_update(
+        jnp.asarray(fm), jnp.asarray(bm), jnp.asarray(windows), jnp.asarray(d), g.tail_start, block
+    )
+    tf, tb = torch.from_numpy(fm.copy()), torch.from_numpy(bm.copy())
+    out = tsp.cuda_boundary_update(tf, tb, torch.from_numpy(windows), torch.from_numpy(d),
+                                   g.tail_start, block)
+    assert out[0] is tf and out[1] is tb     # in place
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tb.numpy(), np.asarray(jb), rtol=1e-5, atol=1e-5)
+
+
+def test_fused_step_applicable_matches_mptpu():
+    for n_samples in (512, 1000, 1024, 16384):
+        for atom_size in (64, 96, 128, 256, 512):
+            for block in (64, 128, 256, 512):
+                for n_atoms in (8, 12, 16, 512):
+                    pad = ((atom_size - 1 + block - 1) // block) * block
+                    args = (n_samples, atom_size, block, pad, n_atoms)
+                    assert tsp.fused_step_applicable(*args, "cpu") == j_applicable(*args)
+    assert not tsp.fused_step_applicable(1024, 128, 128, 128, 16, "meta")
+
+
+def test_no_kernel_launches_on_cpu():
+    kernels.reset_launches()
+    sig = planted(D16, 3, 1024)
+    for kw in (dict(fused=True, whole_loop=True), dict(fused=True, pipelined=False),
+               dict(use_pallas=True, block_argmax=True)):
+        tsp.sparse_code_fast(torch.from_numpy(sig), torch.from_numpy(D16), n_steps=3,
+                             block=128, **kw)
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
