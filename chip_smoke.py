@@ -1,22 +1,32 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port (``mptpu_torch``) of the greedy
-matching-pursuit encoder on one CUDA card and check it.
+"""Drive the PyTorch / CUDA port (``mptpu_torch``) on one CUDA card and
+check it: the greedy matching-pursuit encoder at the bench configuration
+and multiband dictionary learning at its full width.
 
     python3 chip_smoke.py
 
-Phases, each printing one line (any failure exits non-zero):
+Phases, each printing lines (any failure exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``), then the build of
    the CUDA kernels from ``mptpu_torch/csrc`` and its time;
-2. each kernel against its plain PyTorch version, on the card, at the
-   bench shapes (32 items, 512 atoms x 512 taps, 16,384 samples,
-   block 128), on a planted signal with decisive maxima;
-3. three paths through ``sparse_code_fast``, each with the launch counts
-   set to 0 just before and read just after: the bench configuration
-   (``bench.py``'s inputs and settings; whole-encode kernel, timed), the
-   per-step fused path (step kernel) and the unfused path with the
-   boundary kernel. Their events on the planted signal must equal the
-   naive ``sparse_code``'s;
+2. each of the six kernels against its plain PyTorch version, on the
+   card, at the bench shapes (32 items, 512 atoms x 512 taps, 16,384
+   samples, block 128) on a planted signal with decisive maxima; the
+   cluster step kernel also against the one-block step kernel bit for bit
+   (1, 3 and 32 items, and at the largest and smallest multiband band),
+   the lane-table encode against the whole-encode kernel bit for bit, the
+   launch probe against its plain version;
+3. the paths, each with the launch counts set to 0 just before and read
+   just after: the bench configuration through ``sparse_code_fast``
+   (``bench.py``'s inputs and settings; whole-encode kernel, timed); four
+   more paths of ``sparse_code_fast`` (cluster step kernel, one-block step
+   kernel, lane-table encode, unfused with the boundary kernel), whose
+   events on the planted signal must equal the naive ``sparse_code``'s;
+   multiband dictionary learning (``scripts/multiband_bench.py``'s model
+   and signal: 7 bands x 512 atoms x 128 taps x 2^15 samples x 64 steps,
+   batch 4) through ``MultibandDictionaryLearning.recon / encode / learn /
+   decode_global``, timed, recon SNR rising after learning; the launch
+   probe;
 4. each kernel's time beside its plain version's, its bound and, for the
    boundary kernel, one ``torch.matmul`` computing the same product;
 5. a ``kernels`` JSON line, then the result line
@@ -40,6 +50,12 @@ ROOT = Path(__file__).resolve().parent
 
 # bench.py:133-139,182-188
 BENCH = dict(batch=32, n_atoms=512, atom_size=512, n_samples=16384, n_steps=100, block=128, depth=3)
+
+# scripts/multiband_bench.py:30-33
+MULTIBAND = dict(n_samples=2**15, steps=64, n_atoms=512, atom_size=128, batch=4, learn_iters=2,
+                 sizes=(512, 1024, 2048, 4096, 8192, 16384, 32768))
+PROBE_STEPS = 3200   # scripts/grid_overhead_probe.py:53
+HOLD_CYCLES = 20_000_000   # about 10 ms of device spinning ahead of a timed run
 
 # published peaks without tensor cores (NVIDIA data sheets): bytes/s, f32 FLOP/s
 PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12), "H100": (3.35e12, 67e12)}
@@ -76,6 +92,21 @@ def planted_signal(cfg, seed: int = 1):
     return d, sig
 
 
+def multiband_signal(mb):
+    """scripts/multiband_bench.py:49-59: three decaying sines plus noise,
+    tiled over the batch with a little noise per item."""
+    n, batch = mb["n_samples"], mb["batch"]
+    rng = np.random.default_rng(0)
+    t = np.arange(n) / 22050.0
+    sig = sum(np.sin(2 * np.pi * f * t) * np.exp(-t * d)
+              for f, d in [(220, 1.0), (880, 2.0), (3520, 4.0)])
+    sig = sig + 0.1 * rng.standard_normal(n)
+    sig = (sig / np.abs(sig).max()).astype(np.float32)
+    batch_np = np.tile(sig[None, None, :], (batch, 1, 1))
+    batch_np += 0.01 * rng.standard_normal(batch_np.shape).astype(np.float32)
+    return batch_np
+
+
 def bench_inputs(cfg):
     """bench.py:141-143."""
     rng = np.random.default_rng(0)
@@ -108,7 +139,10 @@ def assert_events(name, a, b, with_values=True):
 
 def timed(fn, reps: int, dev, warmup: bool = True) -> float:
     """Mean ms of ``fn`` over ``reps`` calls: between CUDA events on a
-    card, by the host clock on the CPU (where the harness is rehearsed)."""
+    card, by the host clock on the CPU (where the harness is rehearsed).
+    On a card the stream is first held busy for a few milliseconds, so that
+    the calls are queued before the first one starts and the events bracket
+    device time back to back, not the host's pace of launching."""
     import torch
 
     if warmup:
@@ -120,6 +154,7 @@ def timed(fn, reps: int, dev, warmup: bool = True) -> float:
         return (time.perf_counter() - t0) * 1e3 / reps
     torch.cuda.synchronize(dev)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -128,17 +163,20 @@ def timed(fn, reps: int, dev, warmup: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def step_traffic(cfg, geom, positions, table_reads: bool):
+def step_traffic(cfg, geom, positions, table_reads: bool, lane_table: bool = False):
     """(bytes, flops) the fused step body must move and compute for the
     events ``positions`` (any shape): per item-step one gram row read and
     the update window read and written (plus the block-max table read when
-    the table is an input of each call); per clipped event the N x A x A
-    tail product and its N x A write."""
+    the table is an input of each call), and either the winner's map block
+    read by the refine or, with ``lane_table``, the window blocks' lanes
+    written; per clipped event the N x A x A tail product and its N x A
+    write."""
     N, A = cfg["n_atoms"], cfg["atom_size"]
     upd_w = geom.upd_blocks * geom.block
     item_steps = positions.numel()
-    clipped = int((positions > cfg["n_samples"] - A).sum())
+    clipped = int((positions > geom.n_samples - A).sum())
     per = N * 2 * A + 2 * N * upd_w + (N * geom.n_blocks if table_reads else 0)
+    per += N * geom.upd_blocks if lane_table else geom.block
     return 4 * (item_steps * per + clipped * N * A), 2 * N * A * A * clipped
 
 
@@ -147,7 +185,262 @@ def bound(bytes_, flops, peaks):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def run(dev, cfg, peaks, sync):
+def assert_identical(name, triples):
+    import torch
+
+    for field, a, b in triples:
+        if not torch.equal(a, b):
+            differ = int((a != b).sum()) if a.shape == b.shape else -1
+            fail(f"{name}: {field} not bit-identical ({differ} elements differ)")
+
+
+def initial_lanes(fm, geom):
+    """First lane of each block's maximum, lane-padded with zeros
+    (mptpu_torch/sparse/fast_mp.py, the lane_table branch)."""
+    import torch
+    import torch.nn.functional as F
+
+    lanes = torch.argmax(fm.reshape(*fm.shape[:2], geom.n_blocks, geom.block), dim=-1)
+    return F.pad(lanes.to(torch.int32), (0, geom.nb_pad - geom.n_blocks))
+
+
+def cluster_step_check(name, state, d2, gram_p, kw, n_steps, sync, gate_tail=True):
+    """``n_steps`` steps from ``state`` (fm, bm, residual) through the
+    cluster step kernel, the one-block step kernel and the plain version:
+    the two kernels must agree bit for bit after every step, and with the
+    plain version within the tail tolerance. Returns (max abs err against
+    the plain version, clipped events)."""
+    from mptpu_torch.sparse import cuda_fused_step, cuda_fused_step_pipelined, fused_step_plain
+
+    sts = [tuple(t.clone() for t in state) for _ in range(3)]
+    n_clip = 0
+    for step in range(n_steps):
+        e4 = cuda_fused_step_pipelined(*sts[0], d2, gram_p, gate_tail=gate_tail, **kw)
+        e1 = cuda_fused_step(*sts[1], d2, gram_p, gate_tail=gate_tail, **kw)
+        ep = fused_step_plain(*sts[2], d2, gram_p, gate_tail=gate_tail, **kw)
+        sync()
+        assert_identical(f"{name}, step {step}, against the one-block kernel", [
+            ("atoms", e4.atoms, e1.atoms), ("positions", e4.positions, e1.positions),
+            ("values", e4.values, e1.values), ("fm", sts[0][0], sts[1][0]),
+            ("bm", sts[0][1], sts[1][1]), ("residual", sts[0][2], sts[1][2]),
+        ])
+        assert_events(f"{name}, step {step}, against plain", e4, ep)
+        n_clip += int((ep.positions > kw["n_samples"] - kw["atom_size"]).sum())
+    assert_close(f"{name} fm", sts[0][0], sts[2][0], TAIL_TOL)
+    assert_close(f"{name} bm", sts[0][1], sts[2][1], TAIL_TOL)
+    assert_close(f"{name} residual", sts[0][2], sts[2][2], RESIDUAL_TOL)
+    return max_err(zip(sts[0], sts[2])), n_clip
+
+
+def device_time_by_kernel(fn, sync):
+    """{kernel name: device ms} over one call of ``fn`` traced with
+    ``torch.profiler``; empty when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    rows = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            rows[e.key] = rows.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    return rows
+
+
+def busy_line(what, rows, wall_ms):
+    """One line: the device's busy time in ``rows`` against ``wall_ms`` and
+    the kernels that take most of it."""
+    if not rows:
+        return f"{what}: device time not measured (the profiler's trace holds no device time)"
+    busy = sum(rows.values())
+    top = sorted(rows.items(), key=lambda kv: -kv[1])[:6]
+    return (f"{what}: device busy {busy:.3f} ms of {wall_ms:.3f} ms wall measured without the "
+            f"profiler (idle share {max(0.0, 1 - busy / wall_ms):.2f}); by kernel: "
+            + "; ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in top))
+
+
+def multiband_phase(dev, mb, peaks, sync, records):
+    """Multiband dictionary learning at the width of
+    scripts/multiband_bench.py through the model's entry points, with the
+    launch counts set to 0 first and read last; then the cluster step
+    kernel at the largest and smallest band's shapes against the one-block
+    kernel and the plain version, and its time there."""
+    import torch
+    import torch.nn.functional as F
+
+    from mptpu_torch import kernels
+    from mptpu_torch.ops import fft_frequency_decompose, unit_norm
+    from mptpu_torch.sparse import (
+        BandSpec, MultibandDictionaryLearning, cuda_fused_step, cuda_fused_step_pipelined,
+        dictionary_gram, encode_state, fast_geometry, fused_step_applicable, fused_step_plain,
+        sparse_code, sparse_code_fast,
+    )
+
+    sizes, n, steps, batch = mb["sizes"], mb["n_samples"], mb["steps"], mb["batch"]
+    N, A = mb["n_atoms"], mb["atom_size"]
+    block = min(512, A) if A >= 128 else 512   # the band encoder's choice
+    on_card = dev.type == "cuda"
+    model = MultibandDictionaryLearning(
+        [BandSpec(s, N, A, signal_samples=n, is_lowest_band=(s == sizes[0]), device=dev)
+         for s in sizes],
+        n_samples=n,
+    )
+    x = torch.from_numpy(multiband_signal(mb)).to(dev)
+    fused_bands = [s for s in sizes
+                   if fused_step_applicable(s, A, block, fast_geometry(s, A, block).pad, N, dev)]
+    per_encode = len(fused_bands) * steps if on_card else 0
+
+    def snr(recon):
+        num = float((x.double() ** 2).sum())
+        return 10 * np.log10(num / float(((x - recon).double() ** 2).sum()))
+
+    def clocked(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    kernels.reset_launches()
+    (recon, _), first_ms = clocked(lambda: model.recon(x, steps))
+    if tuple(recon.shape) != tuple(x.shape) or not torch.isfinite(recon).all():
+        fail("multiband recon: wrong shape or non-finite values")
+    snr0 = snr(recon)
+    enc_ms = []
+    for _ in range(3):
+        before = kernels.LAUNCHES["cuda_fused_step_pipelined"]
+        enc, ms = clocked(lambda: model.encode(x, steps))
+        enc_ms.append(ms)
+        got = kernels.LAUNCHES["cuda_fused_step_pipelined"] - before
+        if got != per_encode:
+            fail(f"multiband encode: {got} launches of the cluster step kernel, "
+                 f"expected {per_encode}")
+    for size, ev in enc.items():
+        if tuple(ev.atom_indices.shape) != (steps, batch) or not torch.isfinite(ev.values).all():
+            fail(f"multiband encode, band {size}: wrong event shape or non-finite values")
+    enc_rows = device_time_by_kernel(lambda: model.encode(x, steps), sync) if on_card else {}
+    d_start = {size: band.d for size, band in model.bands.items()}
+    learn_ms = [clocked(lambda: model.learn(x, steps))[1] for _ in range(mb["learn_iters"])]
+    for size, band in model.bands.items():
+        norms = band.d.norm(dim=-1)
+        if not torch.allclose(norms, torch.ones_like(norms), atol=1e-4):
+            fail(f"multiband learn, band {size}: atoms are not unit norm")
+    recon, enc = model.recon(x, steps)
+    snr1 = snr(recon)
+    if not snr1 > snr0:
+        fail(f"multiband learn: recon SNR did not rise ({snr0:.3f} -> {snr1:.3f} dB)")
+    flat = model.flattened_event_tuples(model.encode(x, steps))
+    decoded = model.decode_global(*flat, batch_size=batch, n_steps=steps)
+    snr_rt = snr(decoded)
+    if not abs(snr_rt - snr1) < 0.1:
+        fail(f"multiband wire round trip: {snr_rt:.3f} dB against {snr1:.3f} dB from decode")
+    sync()
+    launches = dict(kernels.LAUNCHES)
+    # recon, 3 encodes, 1 traced encode on a card, the learns, recon, encode
+    n_encodes = 4 + int(on_card) + mb["learn_iters"] + 2
+    want = {k: (n_encodes * per_encode if k == "cuda_fused_step_pipelined" else 0)
+            for k in launches}
+    if launches != want:
+        fail(f"multiband path: {launches}, expected {want}")
+    records["cuda_fused_step_pipelined"]["launches"] = launches["cuda_fused_step_pipelined"]
+    ms = float(np.mean(enc_ms))
+    events = steps * len(sizes) * batch
+    print(f"multiband path ({len(sizes)} bands {sizes[0]}..{sizes[-1]}, {N} atoms x {A} taps, "
+          f"{n} samples, {steps} steps, batch {batch}; {len(fused_bands)} bands through the "
+          f"cluster step kernel): first recon {first_ms:.1f} ms, SNR {snr0:.3f} dB; encode "
+          f"{ms:.3f} ms (runs {', '.join(f'{t:.3f}' for t in enc_ms)}) = {events / (ms / 1e3):.0f} "
+          f"events/s, {per_encode} kernel launches per encode; learn "
+          f"{', '.join(f'{t:.1f}' for t in learn_ms)} ms per iteration; SNR after "
+          f"{mb['learn_iters']} iterations {snr1:.3f} dB; wire round trip {snr_rt:.3f} dB; "
+          f"launches {launches}")
+
+    if on_card:
+        print(busy_line("multiband encode, traced", enc_rows, ms))
+        d_end = {size: band.d for size, band in model.bands.items()}
+        for size, band in model.bands.items():   # trace the first learn iteration again
+            band.d = d_start[size]
+        learn_rows = device_time_by_kernel(lambda: model.learn(x, steps), sync)
+        for size, band in model.bands.items():
+            band.d = d_end[size]
+        print(busy_line("multiband learn iteration, traced", learn_rows, learn_ms[0]))
+
+    # per band: where one encode and one learn iteration spend their time,
+    # and the fused path's events against the one-block kernel's (bit for
+    # bit) and the naive encoder's (on this noisy signal near-ties may flip:
+    # counted, and the reconstruction error compared)
+    bands = fft_frequency_decompose(x, model.min_size)
+    _, dec_ms = clocked(lambda: fft_frequency_decompose(x, model.min_size))
+    _, rec_ms = clocked(lambda: model.decode(enc, batch))
+    print(f"multiband split: decompose {dec_ms:.3f} ms, decode (scatter + recompose) {rec_ms:.3f} ms")
+    for size in sizes:
+        band, sig = model.bands[size], bands[size]
+        geom = fast_geometry(size, A, block)
+        d2 = unit_norm(band.d)
+        _, gram_ms = clocked(lambda: dictionary_gram(d2))
+        _, corr_ms = clocked(lambda: encode_state(sig, d2, geom))
+        ev, band_enc_ms = clocked(lambda: band.encode(sig, steps))
+        d_before = band.d
+        _, band_learn_ms = clocked(lambda: band.learn(sig, steps))
+        band.d = d_before
+        used = int(torch.unique(ev.atom_indices).numel())
+        line = (f"  band {size}: encode {band_enc_ms:.3f} ms (gram {gram_ms:.3f}, correlation + "
+                f"tables {corr_ms:.3f}), learn {band_learn_ms:.3f} ms ({used} atoms updated)")
+        if size in fused_bands and on_card:   # on the CPU the band encoder is not fused
+            one = sparse_code_fast(sig, band.d, n_steps=steps, block=block, fused=True,
+                                   pipelined=False)
+            assert_identical(f"band {size}: cluster path vs one-block path", [
+                ("atoms", ev.atom_indices, one.atom_indices), ("positions", ev.positions,
+                 one.positions), ("values", ev.values, one.values),
+                ("residual", ev.residual, one.residual),
+            ])
+            line += "; events and residual bit-identical to the one-block path"
+        naive = sparse_code(sig, band.d, n_steps=steps)
+        differ = int(((naive.atom_indices != ev.atom_indices)
+                      | (naive.positions != ev.positions)).sum())
+        e_fast = float((ev.residual.double() ** 2).sum())
+        e_naive = float((naive.residual.double() ** 2).sum())
+        if not abs(10 * np.log10(e_fast / e_naive)) < 0.05:
+            fail(f"band {size}: residual energy {e_fast:.6e} against naive {e_naive:.6e}")
+        print(line + f"; {differ}/{steps * batch} events differ from naive sparse_code, residual "
+              f"energy ratio {e_fast / e_naive:.6f}")
+        del naive
+
+    # the cluster step kernel at the largest and smallest band's shapes
+    reps = 20
+    for size in (fused_bands[-1], fused_bands[0]) if fused_bands else ():
+        sig = bands[size]
+        geom = fast_geometry(size, A, block)
+        kw = geom._asdict()
+        cfg = dict(n_atoms=N, atom_size=A)
+        d2 = unit_norm(model.bands[size].d)
+        gram_p = F.pad(dictionary_gram(d2), (0, 1))
+        fm, bm, res = encode_state(sig, d2, geom)
+        bm = F.pad(bm, (0, geom.nb_pad - geom.n_blocks), value=-3e38)
+        err, n_clip = cluster_step_check(f"cluster step, band {size}", (fm, bm, res), d2, gram_p,
+                                         kw, 4, sync)
+        rec = records["cuda_fused_step_pipelined"]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        pos = []
+        k4_ms = timed(lambda: pos.append(
+            cuda_fused_step_pipelined(fm, bm, res, d2, gram_p, **kw).positions), reps, dev,
+            warmup=False)
+        k1_ms = timed(lambda: cuda_fused_step(fm, bm, res, d2, gram_p, **kw), reps, dev)
+        plain_ms = timed(lambda: fused_step_plain(fm, bm, res, d2, gram_p, **kw), 3, dev)
+        b_bytes, b_flops = step_traffic(cfg, geom, torch.stack(pos), table_reads=True)
+        bms, by = bound(b_bytes / reps, b_flops / reps, peaks)
+        if size == fused_bands[-1]:
+            rec.update(ms=k4_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
+        else:
+            rec.update(ms_smallest_band=k4_ms, bound_ms_smallest_band=bms)
+        print(f"check + time cuda_fused_step_pipelined at band {size} (batch {batch}, map "
+              f"{tuple(fm.shape)}): bit-identical to the one-block kernel over 4 steps, max abs "
+              f"err vs plain {err:.3e}; {k4_ms:.4f} ms per launch (cuda_fused_step {k1_ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms), bound {bms:.5f} ms ({by})")
+
+
+def run(dev, cfg, peaks, sync, mb=MULTIBAND):
     """Phases 2-4 on device ``dev``; returns the kernels' records."""
     import torch
     import torch.nn.functional as F
@@ -155,11 +448,14 @@ def run(dev, cfg, peaks, sync):
     from mptpu_torch import kernels
     from mptpu_torch.ops import unit_norm
     from mptpu_torch.sparse import (
-        boundary_update_plain, cuda_boundary_update, cuda_fused_encode, cuda_fused_step,
-        dictionary_gram, encode_state, fast_geometry, fused_encode_plain, fused_step_plain,
-        reconstruct_from_events, sparse_code, sparse_code_fast,
+        boundary_update_plain, cuda_boundary_update, cuda_fused_encode, cuda_fused_encode_lane,
+        cuda_fused_step, cuda_fused_step_pipelined, dictionary_gram, encode_state, fast_geometry,
+        fused_encode_lane_plain, fused_encode_plain, fused_step_plain, reconstruct_from_events,
+        sparse_code, sparse_code_fast,
     )
+    from mptpu_torch.sparse.cuda_fused_mp import cluster_size, max_active_clusters
     from mptpu_torch.device import no_tf32
+    from mptpu_torch.probes import probe_launches, probe_plain
 
     B, N, A, n = cfg["batch"], cfg["n_atoms"], cfg["atom_size"], cfg["n_samples"]
     S, block = cfg["n_steps"], cfg["block"]
@@ -211,6 +507,18 @@ def run(dev, cfg, peaks, sync):
           f"max abs err {records['cuda_fused_step']['max_abs_err']:.3e}")
     del states
 
+    worst = 0.0
+    for items, gate in ((B, True), (min(3, B), False), (1, True)):
+        err, n_clip = cluster_step_check(
+            f"cluster step, {items} items", (fm0[:items], bm0_pad[:items], res0[:items]),
+            d2, gram_p, kw, 4, sync, gate_tail=gate,
+        )
+        worst = max(worst, err)
+        print(f"check cuda_fused_step_pipelined vs cuda_fused_step and plain, {items} items x 4 "
+              f"steps (gate_tail={gate}, {n_clip} clipped): bit-identical to the one-block "
+              f"kernel, max abs err vs plain {err:.3e}")
+    records["cuda_fused_step_pipelined"] = dict(max_abs_err=worst)
+
     states = [(fm0.clone(), bm0_pad.clone(), res0.clone()) for _ in range(2)]
     ek = cuda_fused_encode(*states[0], d2, gram_p, n_steps=S, **kw)
     ep = fused_encode_plain(*states[1], d2, gram_p, n_steps=S, **kw)
@@ -225,7 +533,66 @@ def run(dev, cfg, peaks, sync):
     print(f"check cuda_fused_encode vs plain, {S} steps "
           f"({int((ep.positions > n - A).sum())} clipped events): events equal, max abs err "
           f"{records['cuda_fused_encode']['max_abs_err']:.3e}")
-    del states, fm0, bm0, bm0_pad, res0, windows
+    # the lane-table encode: bit for bit the whole-encode kernel's result,
+    # its plain version within the tail tolerance, and tables that describe
+    # the final map
+    lanes0 = initial_lanes(fm0, geom)
+    lane_states = [(fm0.clone(), bm0_pad.clone(), lanes0.clone(), res0.clone()) for _ in range(2)]
+    el = cuda_fused_encode_lane(*lane_states[0], d2, gram_p, n_steps=S, **kw)
+    elp = fused_encode_lane_plain(*lane_states[1], d2, gram_p, n_steps=S, **kw)
+    sync()
+    fm_l, bm_l, lanes_l, res_l = lane_states[0]
+    assert_identical("lane encode vs whole encode", [
+        ("atoms", el.atoms, ek.atoms), ("positions", el.positions, ek.positions),
+        ("values", el.values, ek.values), ("fm", fm_l, states[0][0]),
+        ("bm", bm_l, states[0][1]), ("residual", res_l, states[0][2]),
+    ])
+    assert_events("lane encode vs plain", el, elp)
+    assert_close("lane encode residual", res_l, lane_states[1][3], RESIDUAL_TOL)
+    assert_close("lane encode fm", fm_l, lane_states[1][0], TAIL_TOL)
+    assert_close("lane encode bm", bm_l, lane_states[1][1], TAIL_TOL)
+    blocks = fm_l.reshape(B, N, geom.n_blocks, block)
+    assert_identical("lane tables vs final map", [
+        ("lanes", lanes_l[..., : geom.n_blocks].long(), blocks.argmax(-1)),
+        ("bm", bm_l[..., : geom.n_blocks], blocks.amax(-1)),
+        ("pad lanes", lanes_l[..., geom.n_blocks :], torch.zeros_like(lanes_l[..., geom.n_blocks :])),
+    ])
+    records["cuda_fused_encode_lane"] = dict(max_abs_err=max_err(
+        [(a, b) for a, b in zip(lane_states[0], lane_states[1]) if a.dtype == torch.float32]
+        + [(el.values, elp.values)]
+    ))
+    print(f"check cuda_fused_encode_lane, {S} steps: bit-identical to cuda_fused_encode (events, "
+          f"fm, bm, residual), lanes == argmax and bm == max of every block of the final map, "
+          f"max abs err vs plain {records['cuda_fused_encode_lane']['max_abs_err']:.3e}")
+    # without the tail gate the tail blocks are rewritten at every step,
+    # outside the window of an interior event: a few items, a few steps
+    few = min(3, B)
+    ungated = (fm0[:few].clone(), bm0_pad[:few].clone(), res0[:few].clone())
+    ungated_l = (ungated[0].clone(), ungated[1].clone(), lanes0[:few].clone(), ungated[2].clone())
+    eu = cuda_fused_encode(*ungated, d2, gram_p, n_steps=10, gate_tail=False, **kw)
+    eul = cuda_fused_encode_lane(*ungated_l, d2, gram_p, n_steps=10, gate_tail=False, **kw)
+    sync()
+    blocks = ungated_l[0].reshape(few, N, geom.n_blocks, block)
+    assert_identical("ungated lane encode vs ungated whole encode", [
+        ("atoms", eul.atoms, eu.atoms), ("positions", eul.positions, eu.positions),
+        ("values", eul.values, eu.values), ("fm", ungated_l[0], ungated[0]),
+        ("bm", ungated_l[1], ungated[1]), ("residual", ungated_l[3], ungated[2]),
+        ("lanes", ungated_l[2][..., : geom.n_blocks].long(), blocks.argmax(-1)),
+    ])
+    print(f"check cuda_fused_encode_lane without the tail gate, {few} items x 10 steps: "
+          f"bit-identical to cuda_fused_encode, lanes == argmax of every block")
+    del states, lane_states, fm_l, bm_l, lanes_l, res_l, blocks, fm0, bm0, bm0_pad, res0, windows
+    del ungated, ungated_l
+
+    for vpu in (False, True):
+        want = probe_plain(vpu, PROBE_STEPS, dev)
+        for kind in ("grid", "fori"):
+            got = probe_launches(kind, vpu, PROBE_STEPS, dev)
+            sync()
+            assert_identical(f"probe {kind} vpu={vpu}", [("tile", got, want)])
+    records["probe_launches"] = dict(max_abs_err=0.0)
+    print(f"check probe_launches vs plain, {PROBE_STEPS} steps, grid and fori, with and without "
+          f"the arithmetic: tiles bit-identical (tile[0, 0] = {float(want[0, 0]):.3f})")
 
     # ---- phase 3: the paths, through sparse_code_fast
     d_b_np, sig_b_np = bench_inputs(cfg)
@@ -298,6 +665,30 @@ def run(dev, cfg, peaks, sync):
           f"correlation {corr_ms:.3f} ms, kernel {kernel_ms:.3f} ms; launches {main_launches} "
           f"for {runs + 1} encodes; SNR {snr:.3f} dB; "
           f"{int((ev.positions > n - A).sum())} clipped events")
+    lane_ms, found = [], []
+    for _ in range(3):
+        fm_t, bm_t, res_t = fresh_encode_state()
+        st = (fm_t, bm_t, initial_lanes(fm_t, geom), res_t)
+        lane_ms.append(timed(
+            lambda: found.append(cuda_fused_encode_lane(*st, d2_b, gram_b, n_steps=S, **kw)),
+            1, dev, warmup=False,
+        ))
+    assert_events("lane encode kernel vs bench path", found[-1],
+                  (out.atom_indices, out.positions, out.values))
+    fm_t, bm_t, res_t = fresh_encode_state()
+    st = (fm_t, bm_t, initial_lanes(fm_t, geom), res_t)
+    sync()
+    t0 = time.perf_counter()
+    fused_encode_lane_plain(*st, d2_b, gram_b, n_steps=S, **kw)
+    sync()
+    lane_plain_ms = (time.perf_counter() - t0) * 1e3
+    del st, fm_t, bm_t, res_t
+    l_bytes, l_flops = step_traffic(cfg, geom, found[-1].positions, table_reads=False,
+                                    lane_table=True)
+    l_bytes += 4 * 2 * (2 * B * N * geom.nb_pad + B * (n + A))   # both tables, residuals, once
+    bms, by = bound(l_bytes, l_flops, peaks)
+    records["cuda_fused_encode_lane"].update(ms=float(np.mean(lane_ms)), plain_ms=lane_plain_ms,
+                                             bound_ms=bms, bound_by=by, library_ms=None)
     del gram_b, out, recon
 
     naive = sparse_code(sig_pl, d_pl, n_steps=S)
@@ -306,22 +697,58 @@ def run(dev, cfg, peaks, sync):
     assert_close("fused encode vs naive residual", enc.residual, naive.residual, RESIDUAL_TOL)
     print(f"naive sparse_code vs fused encode, planted full-width signal, {S} steps: events equal")
 
-    for name, path_kw in (
-        ("cuda_fused_step", dict(fused=True, pipelined=False)),
-        ("cuda_boundary_update", dict(use_pallas=True, block_argmax=True)),
+    for name, path_kw, expected in (
+        ("cuda_fused_step_pipelined", dict(fused=True), S),   # pipelined is the default
+        ("cuda_fused_step", dict(fused=True, pipelined=False), S),
+        ("cuda_fused_encode_lane",
+         dict(fused=True, whole_loop=True, lane_table=True, depth=cfg["depth"]), 1),
+        ("cuda_boundary_update", dict(use_pallas=True, block_argmax=True), S),
     ):
         kernels.reset_launches()
         res = sparse_code_fast(sig_pl, d_pl, n_steps=S, block=block, **path_kw)
         sync()
         launches = dict(kernels.LAUNCHES)
-        if launches[name] != (S if on_card else 0):
-            fail(f"{path_kw} path: {launches}, expected {S} launches of {name}")
+        want = {k: (expected if k == name and on_card else 0) for k in launches}
+        if launches != want:
+            fail(f"{path_kw} path: {launches}, expected {expected} launches of {name} alone")
         records[name]["launches"] = launches[name]
         assert_events(f"{path_kw} path vs naive sparse_code", res, naive)
         assert_close(f"{path_kw} path residual", res.residual, naive.residual, RESIDUAL_TOL)
         print(f"path sparse_code_fast({path_kw}), planted signal: launches {launches}, "
               f"events equal to naive")
     del naive, enc, res
+
+    multiband_phase(dev, mb, peaks, sync, records)
+
+    kernels.reset_launches()
+    probe_us = {}
+    for kind in ("grid", "fori"):
+        for vpu in (False, True):
+            best = float("inf")
+            for _ in range(3):
+                sync()
+                t0 = time.perf_counter()
+                probe_launches(kind, vpu, PROBE_STEPS, dev)
+                sync()
+                best = min(best, time.perf_counter() - t0)
+            probe_us[kind, vpu] = best * 1e6 / PROBE_STEPS
+    launches = dict(kernels.LAUNCHES)
+    if launches["probe_launches"] != (12 if on_card else 0):
+        fail(f"probe phase: {launches}")
+    t0 = time.perf_counter()
+    probe_plain(True, PROBE_STEPS, dev)
+    sync()
+    probe_plain_ms = (time.perf_counter() - t0) * 1e3
+    bms, by = bound(4 * 8 * 128, 2 * 8 * 128 * PROBE_STEPS, peaks)
+    records["probe_launches"].update(
+        launches=launches["probe_launches"], ms=probe_us["grid", True] * PROBE_STEPS / 1e3,
+        plain_ms=probe_plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+        fori_ms=probe_us["fori", True] * PROBE_STEPS / 1e3,
+    )
+    print(f"probe, {PROBE_STEPS} steps, best of 3 by the host clock: one launch per step "
+          f"{probe_us['grid', False]:.3f} us/step empty, {probe_us['grid', True]:.3f} us/step with "
+          f"the arithmetic; one in-kernel loop {probe_us['fori', False]:.4f} us/step empty, "
+          f"{probe_us['fori', True]:.4f} us/step with the arithmetic; launches {launches}")
 
     # ---- phase 4: per-kernel times
     fm, bm, res = encode_state(sig_b, d2_b, geom)
@@ -341,7 +768,17 @@ def run(dev, cfg, peaks, sync):
     del windows
 
     gram_b = F.pad(dictionary_gram(d2_b), (0, 1))
-    reps, k1_pos = 20, []
+    reps, k1_pos, k4_pos = 20, [], []
+    k4_state = (fm.clone(), bm.clone(), res.clone())   # both kernels time the same steps
+    fm_sweep, bm_sweep, res_sweep = (t.clone() for t in k4_state)
+    k4_ms = timed(
+        lambda: k4_pos.append(
+            cuda_fused_step_pipelined(*k4_state, d2_b, gram_b, **kw).positions),
+        reps, dev, warmup=False,
+    )
+    del k4_state
+    k4_bytes, k4_flops = step_traffic(cfg, geom, torch.stack(k4_pos), table_reads=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if on_card else 0
     k1_ms = timed(
         lambda: k1_pos.append(cuda_fused_step(fm, bm, res, d2_b, gram_b, **kw).positions),
         reps, dev, warmup=False,
@@ -352,6 +789,23 @@ def run(dev, cfg, peaks, sync):
     bms, by = bound(k1_bytes / reps, k1_flops / reps, peaks)
     records["cuda_fused_step"].update(ms=k1_ms, plain_ms=k1_plain, bound_ms=bms, bound_by=by,
                                       library_ms=None)
+    bms, _ = bound(k4_bytes / reps, k4_flops / reps, peaks)
+    records["cuda_fused_step_pipelined"].update(ms_bench=k4_ms, bound_ms_bench=bms)
+    print(f"time cuda_fused_step_pipelined at the bench shapes, the same {reps} steps as "
+          f"cuda_fused_step ({int((torch.stack(k4_pos) > n - A).sum())} clipped events): "
+          f"{k4_ms:.4f} ms per launch (cuda_fused_step {k1_ms:.4f} ms), bound {bms:.4f} ms"
+          + (f"; the card holds {max_active_clusters(A, cluster_size(B, N, sms))} clusters of "
+             f"{cluster_size(B, N, sms)} blocks at once for {B} items" if on_card else ""))
+    if on_card:
+        sweep = {}
+        for c in (1, 2, 4, 8):   # the same steps again, at every cluster size
+            st = (fm_sweep.clone(), bm_sweep.clone(), res_sweep.clone())
+            sweep[c] = timed(lambda: cuda_fused_step_pipelined(*st, d2_b, gram_b, cluster=c, **kw),
+                             reps, dev, warmup=False)
+            del st
+        print("time cuda_fused_step_pipelined at the bench shapes by cluster size "
+              f"(ms per launch, clusters the card holds at once): "
+              + ", ".join(f"{c}: {sweep[c]:.4f} ({max_active_clusters(A, c)})" for c in sweep))
     for name, r in records.items():
         lib = "" if r["library_ms"] is None else f", library (torch.matmul) {r['library_ms']:.4f} ms"
         print(f"time {name}: {r['ms']:.4f} ms per launch, plain {r['plain_ms']:.4f} ms, bound "
@@ -359,10 +813,18 @@ def run(dev, cfg, peaks, sync):
     return records
 
 
+# the keys every kernel's record has; a record may carry more times
+KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
 SOURCES = {
     "cuda_fused_step": ("mptpu_torch/csrc/mp_fused.cu", "mptpu/sparse/pallas_fused_mp.py:289"),
     "cuda_fused_encode": ("mptpu_torch/csrc/mp_fused.cu", "mptpu/sparse/pallas_fused_mp.py:1219"),
     "cuda_boundary_update": ("mptpu_torch/csrc/mp_boundary.cu", "mptpu/sparse/pallas_mp.py:58"),
+    "cuda_fused_step_pipelined": ("mptpu_torch/csrc/mp_pipelined.cu",
+                                  "mptpu/sparse/pallas_fused_mp.py:727"),
+    "cuda_fused_encode_lane": ("mptpu_torch/csrc/mp_lane.cu",
+                               "mptpu/sparse/pallas_fused_mp.py:1692"),
+    "probe_launches": ("mptpu_torch/csrc/probe.cu", "scripts/grid_overhead_probe.py:84"),
 }
 
 
@@ -402,10 +864,9 @@ def main() -> int:
     line = []
     for name, r in records.items():
         source, replaces = SOURCES[name]
+        extra = {k: v for k, v in r.items() if k not in KEYS}
         line.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
-                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                         library_ms=r["library_ms"]))
+                         **{k: r[k] for k in KEYS}, **extra))
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -2,7 +2,7 @@
 
 Anything ``np.asarray`` accepts (a JAX array, a numpy array, a nested
 list) converts. For the matching-pursuit encoder the dictionary is the
-whole model.
+whole model; for the multiband codec it is one dictionary per band.
 """
 
 from __future__ import annotations
@@ -38,3 +38,16 @@ def params_from_numpy(tree, device=None):
         return torch.from_numpy(np.array(node)).to(dev)
 
     return conv(tree)
+
+
+def band_dicts_from_jax(model_or_dict, device=None) -> dict:
+    """The band dictionaries of a multiband model as float32 tensors on
+    ``default_device(device)``, keyed by band size in the same order.
+
+    Takes ``mptpu``'s ``MultibandDictionaryLearning`` (anything with a
+    ``band_dicts`` mapping) or such a mapping ``{size: (N, A) array}``
+    itself. Give each tensor to the port's ``BandSpec(size, ..., d=...)``
+    and both models compute with the same dictionaries.
+    """
+    dicts = getattr(model_or_dict, "band_dicts", model_or_dict)
+    return {int(size): dictionary_from_jax(d, device) for size, d in dicts.items()}

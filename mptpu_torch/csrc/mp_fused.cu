@@ -21,7 +21,7 @@
 // block: subtract, tail splice and block max together, so the window is
 // read once and written once) and never stages it in shared memory. With
 // one block per item only B of the 132 SMs work (32 at the bench batch);
-// splitting an item across a thread-block cluster is left for later.
+// mp_pipelined.cu splits an item's step across a thread-block cluster.
 #include "mp_step.cuh"
 
 using mp::Geometry;
@@ -72,19 +72,12 @@ fused_encode_kernel(float* fm, float* bm, float* residual, const float* __restri
   for (int j = threadIdx.x; j < g.L; j += kThreads) res_g[j] = res[j];
 }
 
-static Geometry make_geometry(int N, int A, int W, int n_samples, int block, int pad,
-                              int n_blocks, int nbt, int upd_blocks, int tail_start,
-                              int gate_tail) {
-  return Geometry{N, A, W, n_samples + A, n_samples, block, pad,
-                  n_blocks, nbt, upd_blocks, tail_start, gate_tail};
-}
-
 extern "C" int mp_fused_step(void* fm, void* bm, void* residual, void* d2, void* gram_p,
                              void* tail, void* atoms, void* positions, void* values, int B,
                              int N, int A, int W, int n_samples, int block, int pad,
                              int n_blocks, int nbt, int upd_blocks, int tail_start,
                              int gate_tail, void* stream) {
-  const Geometry g = make_geometry(N, A, W, n_samples, block, pad, n_blocks, nbt, upd_blocks,
+  const Geometry g = mp::make_geometry(N, A, W, n_samples, block, pad, n_blocks, nbt, upd_blocks,
                                    tail_start, gate_tail);
   const int smem = kTailAtoms * A * (int)sizeof(float);
   cudaError_t err =
@@ -101,7 +94,7 @@ extern "C" int mp_fused_encode(void* fm, void* bm, void* residual, void* d2, voi
                                int N, int A, int W, int n_samples, int block, int pad,
                                int n_blocks, int nbt, int upd_blocks, int tail_start,
                                int gate_tail, int n_steps, void* stream) {
-  const Geometry g = make_geometry(N, A, W, n_samples, block, pad, n_blocks, nbt, upd_blocks,
+  const Geometry g = mp::make_geometry(N, A, W, n_samples, block, pad, n_blocks, nbt, upd_blocks,
                                    tail_start, gate_tail);
   const int smem = (kTailAtoms * A + g.L) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(fused_encode_kernel,

@@ -1,7 +1,11 @@
-// One greedy fast-MP step for one batch item, run by one thread block.
+// One greedy fast-MP step for one batch item, in pieces that one thread
+// block runs whole (step_item, step_item_lane) or that the blocks of a
+// cluster share by atom rows (mp_pipelined.cu).
 //
-// Shared by the per-step kernel (mp_fused.cu: mp_fused_step) and the
-// whole-encode kernel (mp_fused.cu: mp_fused_encode). It computes what
+// Shared by the per-step kernels (mp_fused.cu: mp_fused_step,
+// mp_pipelined.cu: mp_fused_step_pipelined) and the whole-encode kernels
+// (mp_fused.cu: mp_fused_encode, mp_lane.cu: mp_fused_encode_lane). It
+// computes what
 // the Pallas step body computes (mptpu/sparse/pallas_fused_mp.py
 // _step_kernel, :69-272), indexing directly where the TPU kernel rolls
 // lanes, builds a Hankel matrix by a roll ladder, places block maxima by a
@@ -44,6 +48,13 @@ struct Geometry {
   int tail_start;  // map offset of the last A positions
   int gate_tail;   // recompute the tail only for clipped events
 };
+
+inline Geometry make_geometry(int N, int A, int W, int n_samples, int block, int pad,
+                              int n_blocks, int nbt, int upd_blocks, int tail_start,
+                              int gate_tail) {
+  return Geometry{N, A, W, n_samples + A, n_samples, block, pad,
+                  n_blocks, nbt, upd_blocks, tail_start, gate_tail};
+}
 
 struct Event {
   int atom;
@@ -97,7 +108,7 @@ __device__ __forceinline__ void block_first_max(float& v, int& i, Scratch& s) {
 // the residual from n_samples - A on (zeros past n_samples included).
 // d2 is staged kTailAtoms rows at a time in shared memory (ds); each
 // thread keeps 8 atoms x 1 position in registers. Requires A % 4 == 0.
-__device__ void tail_product(const float* seg, const float* __restrict__ d2, float* tail,
+static __device__ void tail_product(const float* seg, const float* __restrict__ d2, float* tail,
                              float* ds, int N, int A) {
   for (int a0 = 0; a0 < N; a0 += kTailAtoms) {
     for (int e = threadIdx.x; e < kTailAtoms * A; e += kThreads) {
@@ -130,36 +141,34 @@ __device__ void tail_product(const float* seg, const float* __restrict__ d2, flo
   }
 }
 
-// One greedy step of one item, in place on its map row set fm (N, W), its
-// block-max table bm (N, nbt) and its residual row res (L); res may live
-// in global or shared memory. tail (N, A) is global scratch, ds shared
-// scratch of kTailAtoms * A floats. Ends with __syncthreads().
-__device__ Event step_item(float* fm, float* bm, float* res, const float* __restrict__ d2,
-                           const float* __restrict__ gram_p, float* tail, float* ds,
-                           const Geometry g, Scratch& s) {
-  const int tid = threadIdx.x;
-
-  // 1) first maximum of the block-max table, row-major over real blocks
-  float v = -CUDART_INF_F;
-  int idx = INT_MAX;
-  const int cells = g.N * g.n_blocks;
-  for (int e = tid; e < cells; e += kThreads) {
-    const int a = e / g.n_blocks;
-    const float x = bm[(size_t)a * g.nbt + (e - a * g.n_blocks)];
+// First maximum of rows [row0, row0 + nrows) of the block-max table, over
+// real blocks in row-major order; idx is the flat index a * n_blocks + blk
+// with a the row's index in the whole table. Every thread gets the result.
+__device__ __forceinline__ void table_first_max(const float* bm, int row0, int nrows,
+                                                const Geometry g, Scratch& s, float& v,
+                                                int& idx) {
+  v = -CUDART_INF_F;
+  idx = INT_MAX;
+  const int cells = nrows * g.n_blocks;
+  for (int e = threadIdx.x; e < cells; e += kThreads) {
+    const int r = e / g.n_blocks, blk = e - r * g.n_blocks;
+    const float x = bm[(size_t)(row0 + r) * g.nbt + blk];
     if (x > v) {
       v = x;
-      idx = e;
+      idx = (row0 + r) * g.n_blocks + blk;
     }
   }
   block_first_max(v, idx, s);
-  const int atom = idx / g.n_blocks;
-  const int blk = idx - atom * g.n_blocks;
+}
 
-  // 2) refine inside the winning block: the winner is the block's first max
+// (value, position) of the first maximum inside block blk of map row atom.
+__device__ __forceinline__ void refine_block(const float* fm, int atom, int blk,
+                                             const Geometry g, Scratch& s, float& value,
+                                             int& position) {
   const float* seg = fm + (size_t)atom * g.W + (size_t)blk * g.block;
-  v = -CUDART_INF_F;
-  idx = INT_MAX;
-  for (int l = tid; l < g.block; l += kThreads) {
+  float v = -CUDART_INF_F;
+  int idx = INT_MAX;
+  for (int l = threadIdx.x; l < g.block; l += kThreads) {
     const float x = seg[l];
     if (x > v) {
       v = x;
@@ -167,41 +176,67 @@ __device__ Event step_item(float* fm, float* bm, float* res, const float* __rest
     }
   }
   block_first_max(v, idx, s);
-  const float value = v;
-  const int position = blk * g.block + idx - g.pad;
+  value = v;
+  position = blk * g.block + idx - g.pad;
+}
 
-  // 3) residual surgery, then zero everything past the signal end
-  const float* drow = d2 + (size_t)atom * g.A;
-  for (int k = tid; k < g.A; k += kThreads) {
+// res[position : position + A] -= value * drow on a whole residual row
+// (length L), then zero everything past the signal end. Ends with
+// __syncthreads().
+__device__ __forceinline__ void residual_surgery(float* res, const float* __restrict__ drow,
+                                                 int position, float value, const Geometry g) {
+  for (int k = threadIdx.x; k < g.A; k += kThreads) {
     res[position + k] = __fsub_rn(res[position + k], __fmul_rn(value, drow[k]));
   }
   __syncthreads();
-  for (int j = g.n_samples + tid; j < g.L; j += kThreads) res[j] = 0.f;
+  for (int j = g.n_samples + threadIdx.x; j < g.L; j += kThreads) res[j] = 0.f;
   __syncthreads();
+}
 
-  // 4) exact boundary tail, needed only when the event clipped (or always
-  // without the gate): for interior events the gram subtract is exact
-  const bool clipped = !g.gate_tail || position > g.n_samples - g.A;
-  if (clipped) tail_product(res + (g.n_samples - g.A), d2, tail, ds, g.N, g.A);
+// The same surgery on a copy seg (2A floats) of the row's samples
+// [n_samples - A, n_samples + A): the same operations on the same values,
+// so seg ends equal to that part of the row. Ends with __syncthreads().
+__device__ __forceinline__ void segment_surgery(float* seg, const float* __restrict__ drow,
+                                                int position, float value, const Geometry g) {
+  const int base = g.n_samples - g.A;
+  for (int k = threadIdx.x; k < g.A; k += kThreads) {
+    const int j = position + k - base;
+    if (j >= 0) seg[j] = __fsub_rn(seg[j], __fmul_rn(value, drow[k]));
+  }
+  __syncthreads();
+  for (int j = g.A + threadIdx.x; j < 2 * g.A; j += kThreads) seg[j] = 0.f;
+  __syncthreads();
+}
 
-  // 5) one pass over the window blocks (and, when clipped, the tail
-  // blocks): subtract value * gram_p[atom] on [ustart, ustart + 2A), let
-  // the exact tail win over [tail_start, tail_start + A), and take each
-  // block's maximum from the final values. One warp per (atom row, block).
+// One pass over the window blocks (and, when clipped, the tail blocks) of
+// map rows [row0, row0 + nrows): subtract value * gram_p[atom] on
+// [ustart, ustart + 2A), let the exact tail win over
+// [tail_start, tail_start + A), and take each block's maximum from the
+// final values. One warp per (atom row, block). tail is the item's whole
+// (N, A) scratch. With kLanes the first lane of each block's maximum goes
+// into lanes (same layout as bm) beside the maximum. No barrier inside.
+template <bool kLanes>
+__device__ __forceinline__ void update_rows(float* fm, float* bm, int* lanes, const float* tail,
+                                            const float* __restrict__ gram_p, int atom,
+                                            int position, float value, bool clipped, int row0,
+                                            int nrows, const Geometry g) {
+  const int tid = threadIdx.x;
   const int ustart = position + g.pad - (g.A - 1);
   const int ws_blk = min(ustart / g.block, g.n_blocks - g.upd_blocks);
   const int tail_blk = g.tail_start / g.block;
   const int per_row = g.upd_blocks + (clipped ? g.A / g.block : 0);
   const int lane = tid & 31, warp = tid >> 5;
   const float* grow0 = gram_p + (size_t)atom * g.N * 2 * g.A;
-  for (int w = warp; w < g.N * per_row; w += kWarps) {
-    const int row = w / per_row, kk = w - row * per_row;
+  for (int w = warp; w < nrows * per_row; w += kWarps) {
+    const int r = w / per_row, kk = w - r * per_row;
+    const int row = row0 + r;
     const int b_ = kk < g.upd_blocks ? ws_blk + kk : tail_blk + (kk - g.upd_blocks);
     if (kk >= g.upd_blocks && b_ >= ws_blk && b_ < ws_blk + g.upd_blocks) continue;
     float* f = fm + (size_t)row * g.W;
     const float* gr = grow0 + (size_t)row * 2 * g.A;
     const float* tr = tail + (size_t)row * g.A;
     float m = -CUDART_INF_F;
+    int ml = INT_MAX;
     for (int l = lane; l < g.block; l += 32) {
       const int x = b_ * g.block + l;
       float val;
@@ -217,11 +252,74 @@ __device__ Event step_item(float* fm, float* bm, float* res, const float* __rest
           val = f[x];
         }
       }
-      m = fmaxf(m, val);
+      if (kLanes) {
+        if (val > m) {   // l ascends: the first lane of the maximum stays
+          m = val;
+          ml = l;
+        }
+      } else {
+        m = fmaxf(m, val);
+      }
     }
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    if (lane == 0) bm[(size_t)row * g.nbt + b_] = m;
+    for (int o = 16; o > 0; o >>= 1) {
+      if (kLanes) {
+        keep_first_max(m, ml, __shfl_xor_sync(0xffffffffu, m, o),
+                       __shfl_xor_sync(0xffffffffu, ml, o));
+      } else {
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      }
+    }
+    if (lane == 0) {
+      bm[(size_t)row * g.nbt + b_] = m;
+      if (kLanes) lanes[(size_t)row * g.nbt + b_] = ml;
+    }
   }
+}
+
+// Whether the boundary tail must be recomputed for an event at position:
+// only when its atom ran past the signal end (for interior events the gram
+// subtract is exact), or always without the gate.
+__device__ __forceinline__ bool event_clipped(int position, const Geometry g) {
+  return !g.gate_tail || position > g.n_samples - g.A;
+}
+
+// One greedy step of one item, in place on its map row set fm (N, W), its
+// block-max table bm (N, nbt) and its residual row res (L); res may live
+// in global or shared memory. tail (N, A) is global scratch, ds shared
+// scratch of kTailAtoms * A floats. Ends with __syncthreads().
+static __device__ Event step_item(float* fm, float* bm, float* res, const float* __restrict__ d2,
+                           const float* __restrict__ gram_p, float* tail, float* ds,
+                           const Geometry g, Scratch& s) {
+  // 1) first maximum of the block-max table, 2) refine inside its block
+  float value;
+  int idx, position;
+  table_first_max(bm, 0, g.N, g, s, value, idx);
+  const int atom = idx / g.n_blocks;
+  refine_block(fm, atom, idx - atom * g.n_blocks, g, s, value, position);
+  // 3) residual surgery, 4) exact boundary tail, 5) window pass
+  residual_surgery(res, d2 + (size_t)atom * g.A, position, value, g);
+  const bool clipped = event_clipped(position, g);
+  if (clipped) tail_product(res + (g.n_samples - g.A), d2, tail, ds, g.N, g.A);
+  update_rows<false>(fm, bm, nullptr, tail, gram_p, atom, position, value, clipped, 0, g.N, g);
+  __syncthreads();
+  return Event{atom, position, value};
+}
+
+// The same step with the winner's position read from the lane table: the
+// table entry is the winner's value and lanes[atom, blk] its lane, so the
+// map is not read to select. The window pass keeps both tables current.
+static __device__ Event step_item_lane(float* fm, float* bm, int* lanes, float* res,
+                                const float* __restrict__ d2, const float* __restrict__ gram_p,
+                                float* tail, float* ds, const Geometry g, Scratch& s) {
+  float value;
+  int idx;
+  table_first_max(bm, 0, g.N, g, s, value, idx);
+  const int atom = idx / g.n_blocks, blk = idx - atom * g.n_blocks;
+  const int position = blk * g.block + lanes[(size_t)atom * g.nbt + blk] - g.pad;
+  residual_surgery(res, d2 + (size_t)atom * g.A, position, value, g);
+  const bool clipped = event_clipped(position, g);
+  if (clipped) tail_product(res + (g.n_samples - g.A), d2, tail, ds, g.N, g.A);
+  update_rows<true>(fm, bm, lanes, tail, gram_p, atom, position, value, clipped, 0, g.N, g);
   __syncthreads();
   return Event{atom, position, value};
 }

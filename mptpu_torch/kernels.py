@@ -38,9 +38,21 @@ _SIGNATURES = {
     "mp_fused_step": [_P] * 9 + [_I] * 12 + [_P],
     "mp_fused_encode": [_P] * 9 + [_I] * 13 + [_P],
     "mp_boundary_update": [_P] * 4 + [_I] * 6 + [_P],
+    "mp_fused_step_pipelined": [_P] * 9 + [_I] * 13 + [_P],
+    "mp_fused_step_pipelined_max_clusters": [_I, _I],
+    "mp_fused_encode_lane": [_P] * 10 + [_I] * 13 + [_P],
+    "probe_grid": [_P, _I, _I, _P],
+    "probe_loop": [_P, _I, _I, _P],
 }
 
-LAUNCHES = {"cuda_fused_step": 0, "cuda_fused_encode": 0, "cuda_boundary_update": 0}
+LAUNCHES = {
+    "cuda_fused_step": 0,
+    "cuda_fused_encode": 0,
+    "cuda_boundary_update": 0,
+    "cuda_fused_step_pipelined": 0,
+    "cuda_fused_encode_lane": 0,
+    "probe_launches": 0,
+}
 
 _lib = None
 build_log = ""

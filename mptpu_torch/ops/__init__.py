@@ -3,6 +3,12 @@
 from .fft import n_fft_coeffs, next_pow2, rfft, irfft, fft_convolve, simple_fft_convolve
 from .correlation import mp_correlate, torch_style_conv
 from .norms import unit_norm, max_norm, limit_norm, example_norm
+from .decompose import (
+    band_sizes,
+    fft_frequency_decompose,
+    fft_frequency_recompose,
+    fft_resample,
+)
 
 __all__ = [
     "n_fft_coeffs",
@@ -17,4 +23,8 @@ __all__ = [
     "max_norm",
     "limit_norm",
     "example_norm",
+    "band_sizes",
+    "fft_frequency_decompose",
+    "fft_frequency_recompose",
+    "fft_resample",
 ]

@@ -14,14 +14,20 @@ lane-padded) and the padded residual rows (B, n_samples + A):
 6. the tail overwrites ``fm[b, :, tail_start : tail_start + A]``;
 7. the maxima of every window block and tail block are taken again.
 
-``cuda_fused_step`` launches that once per step; ``cuda_fused_encode``
-runs all ``n_steps`` in one launch. Their plain PyTorch versions
-(``fused_step_plain``, ``fused_encode_plain``) sit here too; a CPU tensor
-takes them. On a CUDA tensor the wrappers launch the kernel or raise.
+``cuda_fused_step`` launches that once per step with one thread block
+per item; ``cuda_fused_step_pipelined`` is the same function with each
+item's step shared by a thread-block cluster; ``cuda_fused_encode`` runs
+all ``n_steps`` in one launch; ``cuda_fused_encode_lane`` does so with a
+table of each block's first-maximum lane, so that selecting reads no map
+block. Their plain PyTorch versions (``fused_step_plain``,
+``fused_encode_plain``, ``fused_encode_lane_plain``) sit here too; a CPU
+tensor takes them. On a CUDA tensor the wrappers launch the kernel or
+raise.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple
 
 import torch
@@ -113,16 +119,19 @@ def _tail(residual, d2, n_samples: int):
         return F.conv1d(seg[:, None, :], d2[:, None, :])
 
 
-def _repair_blocks(fm, bm, first_blk, n_blk: int, block: int) -> None:
+def _repair_blocks(fm, bm, first_blk, n_blk: int, block: int, lanes=None) -> None:
     """In place: ``bm[b, :, first_blk[b] + k]`` = max of that map block,
-    for k < n_blk."""
+    for k < n_blk; with ``lanes``, the first lane of that maximum too."""
     B, N, _ = fm.shape
     dev = fm.device
     rows = torch.arange(B, device=dev)[:, None, None]
     atoms = torch.arange(N, device=dev)[None, :, None]
     cols = first_blk[:, None] * block + torch.arange(n_blk * block, device=dev)
-    maxima = fm[rows, atoms, cols[:, None, :]].reshape(B, N, n_blk, block).amax(-1)
-    bm[rows, atoms, (first_blk[:, None] + torch.arange(n_blk, device=dev))[:, None, :]] = maxima
+    maxima, first = fm[rows, atoms, cols[:, None, :]].reshape(B, N, n_blk, block).max(-1)
+    blks = (first_blk[:, None] + torch.arange(n_blk, device=dev))[:, None, :]
+    bm[rows, atoms, blks] = maxima
+    if lanes is not None:
+        lanes[rows, atoms, blks] = first.to(lanes.dtype)
 
 
 # ---- plain versions
@@ -133,13 +142,23 @@ def fused_step_plain(
     pad: int, n_blocks: int, upd_blocks: int, tail_start: int, gate_tail: bool = True,
 ) -> StepEvents:
     """One fused step in PyTorch ops, in place on ``fm``, ``bm`` and
-    ``residual``; the same function as ``cuda_fused_step``."""
+    ``residual``; the same function as ``cuda_fused_step`` and as
+    ``cuda_fused_step_pipelined``, whose plain version it is too."""
     B = fm.shape[0]
-    A = atom_size
     nbt = bm.shape[-1]
     midx = torch.argmax(bm.reshape(B, -1), dim=-1)   # lane pads never win
     atom = midx // nbt
     value, position = _refine(fm, atom, midx % nbt, block, pad)
+    return _apply_event(fm, bm, None, residual, d2, gram_p, atom, position, value,
+                        n_samples, atom_size, block, pad, n_blocks, upd_blocks, tail_start,
+                        gate_tail)
+
+
+def _apply_event(fm, bm, lanes, residual, d2, gram_p, atom, position, value, n_samples,
+                 atom_size, block, pad, n_blocks, upd_blocks, tail_start, gate_tail) -> StepEvents:
+    """Steps 3-7 for the selected events, in place; ``lanes`` (or None) is
+    repaired beside ``bm``."""
+    A = atom_size
     _subtract_residual(residual, d2, atom, position, value, n_samples)
 
     ustart = position + pad - (A - 1)
@@ -150,12 +169,13 @@ def fused_step_plain(
         tail = _tail(residual[sel], d2, n_samples)
         fm[sel, :, tail_start : tail_start + A] = tail
     ws_blk = torch.clamp(ustart // block, max=n_blocks - upd_blocks)
-    _repair_blocks(fm, bm, ws_blk, upd_blocks, block)
+    _repair_blocks(fm, bm, ws_blk, upd_blocks, block, lanes)
     if sel.numel():
         t0 = tail_start // block
-        bm[sel, :, t0 : t0 + A // block] = tail.reshape(
-            sel.numel(), -1, A // block, block
-        ).amax(-1)
+        maxima, first = tail.reshape(sel.numel(), -1, A // block, block).max(-1)
+        bm[sel, :, t0 : t0 + A // block] = maxima
+        if lanes is not None:
+            lanes[sel, :, t0 : t0 + A // block] = first.to(lanes.dtype)
     return StepEvents(atom.to(torch.int32), position.to(torch.int32), value)
 
 
@@ -168,6 +188,57 @@ def fused_encode_plain(
         for _ in range(n_steps)
     ]
     return StepEvents(*(torch.stack(x) for x in zip(*steps)))
+
+
+def fused_encode_lane_plain(
+    fm, bm, lanes, residual, d2, gram_p, *, n_steps: int, block: int, pad: int,
+    gate_tail: bool = True, **geometry
+) -> StepEvents:
+    """``n_steps`` greedy steps that select from the tables alone, in place
+    on ``fm``, ``bm``, ``lanes`` and ``residual``: the winner's value is its
+    ``bm`` entry and its position ``blk * block + lanes[b, atom, blk] - pad``
+    (no map block is read), and the window and tail repairs rewrite both
+    tables. The same function as ``cuda_fused_encode_lane``."""
+    B = fm.shape[0]
+    nbt = bm.shape[-1]
+    rows = torch.arange(B, device=fm.device)
+    steps = []
+    for _ in range(n_steps):
+        flat = bm.reshape(B, -1)
+        midx = torch.argmax(flat, dim=-1)
+        atom, blk = midx // nbt, midx % nbt
+        value = flat[rows, midx]
+        position = blk * block + lanes[rows, atom, blk].long() - pad
+        steps.append(_apply_event(
+            fm, bm, lanes, residual, d2, gram_p, atom, position, value,
+            block=block, pad=pad, gate_tail=gate_tail, **geometry,
+        ))
+    return StepEvents(*(torch.stack(x) for x in zip(*steps)))
+
+
+def cluster_size(batch: int, n_atoms: int, sm_count: int) -> int:
+    """Thread blocks per item for ``cuda_fused_step_pipelined``: the largest
+    of 8, 4, 2, 1 that divides ``n_atoms`` and keeps ``batch`` clusters
+    within the card's ``sm_count`` SMs (1 when even that does not fit)."""
+    for c in (8, 4, 2):
+        if n_atoms % c == 0 and batch * c <= sm_count:
+            return c
+    return 1
+
+
+@lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def max_active_clusters(atom_size: int, clusters_of: int) -> int:
+    """How many clusters of ``clusters_of`` blocks of the cluster step
+    kernel the current card holds at once (CUDA's occupancy query, no
+    launch); a launch of more items than that runs in waves."""
+    n = kernels.library().mp_fused_step_pipelined_max_clusters(atom_size, clusters_of)
+    if n < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters: CUDA error {-n}")
+    return n
 
 
 # ---- kernel wrappers
@@ -191,17 +262,22 @@ def _check_step_args(fm, bm, residual, d2, gram_p, n_samples, atom_size, block, 
 
 
 def _launch_step(name, counter, fm, bm, residual, d2, gram_p, n_out, gate_tail, geometry,
-                 *extra) -> StepEvents:
+                 *extra, lanes=None) -> StepEvents:
     B, N, W = _check_step_args(fm, bm, residual, d2, gram_p, **geometry)
     A = geometry["atom_size"]
     dev = fm.device
+    tables = (bm,)
+    if lanes is not None:
+        kernels.check("lanes", lanes, tuple(bm.shape), dtype=torch.int32, device=dev)
+        tables = (bm, lanes)
     tail = torch.empty((B, N, A), dtype=torch.float32, device=dev)
     atoms = torch.empty(n_out, dtype=torch.int32, device=dev)
     positions = torch.empty(n_out, dtype=torch.int32, device=dev)
     values = torch.empty(n_out, dtype=torch.float32, device=dev)
     kernels.launch(
         name, counter,
-        *(t.data_ptr() for t in (fm, bm, residual, d2, gram_p, tail, atoms, positions, values)),
+        *(t.data_ptr() for t in (fm, *tables, residual, d2, gram_p, tail, atoms, positions,
+                                 values)),
         B, N, A, W, geometry["n_samples"], geometry["block"], geometry["pad"],
         geometry["n_blocks"], bm.shape[-1], geometry["upd_blocks"], geometry["tail_start"],
         int(gate_tail), *extra,
@@ -242,3 +318,46 @@ def cuda_fused_encode(
     # cudaFuncSetAttribute, which the wrapper raises on
     return _launch_step("mp_fused_encode", "cuda_fused_encode", fm, bm, residual, d2, gram_p,
                         (n_steps, fm.shape[0]), gate_tail, geometry, n_steps)
+
+
+def cuda_fused_step_pipelined(
+    fm, bm, residual, d2, gram_p, *, gate_tail: bool = True, cluster: int | None = None,
+    **geometry
+) -> StepEvents:
+    """``cuda_fused_step``'s function, bit for bit, with each item's step
+    shared by a thread-block cluster so that a small batch still fills the
+    card (counterpart of ``pallas_fused_step_pipelined``, which overlaps
+    items on the TPU's sequential grid for the same reason).
+
+    CPU tensors take ``fused_step_plain``; CUDA tensors launch
+    ``csrc/mp_pipelined.cu:mp_fused_step_pipelined`` with ``cluster`` blocks
+    per item (1, 2, 4 or 8 and a divisor of N; by default
+    ``cluster_size(B, N, SMs of the card)``), each owning ``N / cluster``
+    atom rows. The result does not depend on ``cluster``."""
+    if fm.device.type == "cpu":
+        return fused_step_plain(fm, bm, residual, d2, gram_p, gate_tail=gate_tail, **geometry)
+    if cluster is None:
+        cluster = cluster_size(fm.shape[0], fm.shape[1], _sm_count(fm.device.index))
+    elif cluster not in (1, 2, 4, 8) or fm.shape[1] % cluster:
+        raise ValueError(f"cluster must be 1, 2, 4 or 8 and divide {fm.shape[1]} atoms")
+    return _launch_step("mp_fused_step_pipelined", "cuda_fused_step_pipelined", fm, bm, residual,
+                        d2, gram_p, (fm.shape[0],), gate_tail, geometry, cluster)
+
+
+def cuda_fused_encode_lane(
+    fm, bm, lanes, residual, d2, gram_p, *, n_steps: int, gate_tail: bool = True, **geometry
+) -> StepEvents:
+    """The whole ``n_steps`` greedy loop selecting from ``bm`` and the int32
+    table ``lanes`` (same shape as ``bm``; first lane of each block's
+    maximum, 0 in pad columns), in place on ``fm``, ``bm``, ``lanes`` and
+    ``residual``; events are (n_steps, B) and equal ``cuda_fused_encode``'s.
+
+    CPU tensors take ``fused_encode_lane_plain``; CUDA tensors launch
+    ``csrc/mp_lane.cu:mp_fused_encode_lane`` once (one thread block per
+    item, residual row in shared memory as ``cuda_fused_encode``)."""
+    if fm.device.type == "cpu":
+        return fused_encode_lane_plain(
+            fm, bm, lanes, residual, d2, gram_p, n_steps=n_steps, gate_tail=gate_tail, **geometry
+        )
+    return _launch_step("mp_fused_encode_lane", "cuda_fused_encode_lane", fm, bm, residual, d2,
+                        gram_p, (n_steps, fm.shape[0]), gate_tail, geometry, n_steps, lanes=lanes)

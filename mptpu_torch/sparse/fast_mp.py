@@ -7,11 +7,11 @@ recompute the last ``A`` map positions exactly when the event's atom runs
 past the signal end. The engines, selected as in ``mptpu``:
 
 - ``fused=True`` (shapes passing ``fused_step_applicable``): the CUDA
-  kernels of ``cuda_fused_mp`` (whole encode in one launch, or one launch
-  per step). ``pipelined=True`` without ``whole_loop`` and
-  ``lane_table=True`` name kernels not ported yet: they raise
-  ``NotImplementedError`` on a CUDA tensor and take the plain version, the
-  same function, on a CPU tensor.
+  kernels of ``cuda_fused_mp``. One launch per step: the cluster kernel
+  ``cuda_fused_step_pipelined`` (``pipelined=True``, the default) or the
+  one-block-per-item ``cuda_fused_step``. ``whole_loop=True``: the whole
+  encode in one launch, ``cuda_fused_encode`` or, with ``lane_table=True``,
+  ``cuda_fused_encode_lane``.
 - otherwise PyTorch ops: flat argmax or ``block_argmax``, with the tail by
   ``F.conv1d`` or, with ``use_pallas``, by ``cuda_boundary_update``.
 
@@ -33,7 +33,9 @@ from .matching_pursuit import SparseCodeResult
 from .cuda_mp import cuda_boundary_update
 from .cuda_fused_mp import (
     cuda_fused_encode,
+    cuda_fused_encode_lane,
     cuda_fused_step,
+    cuda_fused_step_pipelined,
     fused_step_applicable,
     kernels_usable,
     _refine,
@@ -141,28 +143,25 @@ def sparse_code_fast(
     if fused and fused_step_applicable(n_samples, atom_size, block, geom.pad, n_atoms, dev):
         gram_p = F.pad(gram, (0, 1))   # lag axis zero-padded to 2A
         del gram
-        on_card = dev.type == "cuda"
         whole_loop = whole_loop and depth + 1 <= batch <= 128
         if pipelined or whole_loop:
             bm = F.pad(bm, (0, geom.nb_pad - geom.n_blocks), value=TABLE_PAD)
         kw = geom._asdict()
-        if whole_loop:
-            if lane_table and on_card:
-                raise NotImplementedError(
-                    "lane_table=True: the lane-table encode kernel is not ported "
-                    "yet (ROADMAP queue B, item 5)"
-                )
+        if whole_loop and lane_table:
+            # first lane of each block's maximum, 0 in the pad columns
+            lanes = torch.argmax(fm.reshape(batch, n_atoms, geom.n_blocks, block), dim=-1)
+            lanes = F.pad(lanes.to(torch.int32), (0, geom.nb_pad - geom.n_blocks))
+            ev = cuda_fused_encode_lane(
+                fm, bm, lanes, residual, d2, gram_p, n_steps=n_steps, gate_tail=gate_tail, **kw
+            )
+        elif whole_loop:
             ev = cuda_fused_encode(
                 fm, bm, residual, d2, gram_p, n_steps=n_steps, gate_tail=gate_tail, **kw
             )
         else:
-            if pipelined and on_card:
-                raise NotImplementedError(
-                    "fused=True, pipelined=True without whole_loop: the pipelined "
-                    "step kernel is not ported yet (ROADMAP queue B, item 4)"
-                )
+            step = cuda_fused_step_pipelined if pipelined else cuda_fused_step
             steps = [
-                cuda_fused_step(fm, bm, residual, d2, gram_p, gate_tail=gate_tail, **kw)
+                step(fm, bm, residual, d2, gram_p, gate_tail=gate_tail, **kw)
                 for _ in range(n_steps)
             ]
             ev = [torch.stack(x) for x in zip(*steps)]

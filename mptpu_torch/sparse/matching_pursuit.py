@@ -1,4 +1,5 @@
-"""Greedy matching pursuit (counterpart of ``mptpu/sparse/matching_pursuit.py``).
+"""Greedy matching pursuit and dictionary learning (counterpart of
+``mptpu/sparse/matching_pursuit.py``).
 
 Events come back as dense ``(n_steps, batch)`` arrays of (atom index,
 position, value). Atoms that run past the signal end are clipped: energy
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..ops.correlation import mp_correlate
@@ -125,3 +127,98 @@ def reconstruct_from_events(result: SparseCodeResult, d: torch.Tensor) -> torch.
         channels=channels,
         batch=batch,
     )
+
+
+def _first_selection_groups(atom_indices: torch.Tensor):
+    """Events grouped by atom, the atoms in first-selection order
+    (step-major, batch-minor), each group in event order.
+
+    Returns (atoms, order, bounds): ``atoms[i]`` is the i-th atom to visit
+    and ``order[bounds[i]:bounds[i + 1]]`` its flat event indices. The one
+    host copy of the event list happens here.
+    """
+    flat = atom_indices.reshape(-1).cpu().numpy()
+    uniq, first = np.unique(flat, return_index=True)
+    atoms = uniq[np.argsort(first, kind="stable")]
+    rank = np.empty(int(flat.max()) + 1 if flat.size else 0, dtype=np.int64)
+    rank[atoms] = np.arange(len(atoms))
+    order = np.argsort(rank[flat], kind="stable")
+    counts = np.bincount(rank[flat], minlength=len(atoms))
+    bounds = np.concatenate([[0], np.cumsum(counts)])
+    return atoms.tolist(), order, bounds.tolist()
+
+
+def dictionary_learning_step(
+    signal: torch.Tensor,
+    d: torch.Tensor,
+    n_steps: int = 100,
+    approx=None,
+    use_fft: bool = False,
+) -> torch.Tensor:
+    """One dictionary-learning sweep: sparse-code the signal, then for each
+    used atom in first-selection order add its instances back into the
+    update residual, gather the residual segments at their positions, sum
+    and unit-norm them into the new atom, and re-subtract the instances
+    rendered with the new atom at amplitude ``|value|``.
+
+    The update pass starts from the full signal, not from the coding
+    residual, so an atom still sees the contributions of atoms not yet
+    visited; later atoms see earlier atoms' updates (Gauss-Seidel). Unused
+    atoms keep their value. Energy scattered past the signal end is
+    dropped, so gathers past the end read zeros.
+
+    ``mptpu`` runs this as a 512-trip ``fori_loop`` with masks over all
+    events; here it is a Python loop over the atoms that were used, each
+    with its own events only. Overlapping windows are summed by
+    ``index_add_``, on CUDA with atomics and so in no fixed order.
+    """
+    if signal.ndim == 2:
+        signal = signal[:, None, :]
+    batch, channels, n_samples = signal.shape
+    d3 = _normalize_dict(_as3d(d))
+    atom_size = d3.shape[-1]
+    dev = signal.device
+
+    if approx is None and not use_fft and channels == 1:
+        # the fast engine gives the same events; on a card the fused kernels
+        # engage when the shapes pass their gate, else block_argmax
+        from .fast_mp import sparse_code_fast
+
+        block = min(512, atom_size) if atom_size >= 128 else 512
+        on_card = dev.type != "cpu"
+        coded = sparse_code_fast(
+            signal, d3[:, 0, :], n_steps=n_steps, block=block,
+            fused=on_card, block_argmax=on_card,
+        )
+    else:
+        coded = sparse_code(signal, d3, n_steps=n_steps, approx=approx, use_fft=use_fft)
+
+    atoms, order, bounds = _first_selection_groups(coded.atom_indices)
+    order = torch.from_numpy(order).to(dev)
+    pos = coded.positions.reshape(-1)[order].long()
+    val = coded.values.reshape(-1)[order]
+    # flat offsets into the padded update residual of every event's
+    # (channels, atom_size) window, events grouped by atom
+    row_len = n_samples + atom_size
+    rows = (order % batch)[:, None] * channels + torch.arange(channels, device=dev)
+    flat = rows[:, :, None] * row_len + (pos[:, None] + torch.arange(atom_size, device=dev))[:, None, :]
+
+    padded = torch.nn.functional.pad(signal, (0, atom_size)).contiguous()
+    padded_flat = padded.view(-1)
+    dd = d3.clone()
+    for a, lo, hi in zip(atoms, bounds[:-1], bounds[1:]):
+        idx = flat[lo:hi].reshape(-1)
+        v = val[lo:hi, None, None]
+        # 1) instances rendered with the coding-time atom go back in
+        padded_flat.index_add_(0, idx, (v * dd[a]).reshape(-1))
+        padded[:, :, n_samples:] = 0.0
+        # 2) the new atom: summed residual segments, unit norm
+        summed = padded_flat[idx].reshape(hi - lo, -1).sum(0)
+        new_atom = unit_norm(summed).reshape(channels, atom_size)
+        dd[a] = new_atom
+        # 3) instances rendered with the new atom come out at |value|
+        padded_flat.index_add_(0, idx, (v.abs() * new_atom).reshape(-1), alpha=-1)
+        padded[:, :, n_samples:] = 0.0
+
+    d_new = _normalize_dict(dd)
+    return d_new if d.ndim == 3 else d_new[:, 0, :]

@@ -114,14 +114,143 @@ def test_fused_boundary_heavy_matches_mptpu_and_naive(gate_tail):
     ids=["pipelined_step", "lane_table"],
 )
 def test_unported_kernels_take_the_plain_version_on_cpu(kw):
-    """The pipelined step (K4) and the lane-table encode (K5) are pinned
-    bit-identical to the per-step kernel (tests/test_fast_mp.py:137-155,
-    260-293); on a CPU tensor the port takes the same plain version."""
+    """The pipelined step and the lane-table encode are pinned bit-identical
+    to the per-step kernel (tests/test_fast_mp.py:137-155, 260-293). On a
+    CPU tensor no kernel can launch: their wrappers take the plain versions,
+    whose results equal mptpu's and the per-step engine's."""
+    kernels.reset_launches()
     sig = planted(D16, 3, 1024)
     j, t = run_both(D16, sig, 7, block=128, fused=True, **kw)
     assert_same(j, t)
     _, per_step = run_both(D16, sig, 7, block=128, fused=True, pipelined=False)
     assert torch.equal(t.residual, per_step.residual)
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
+
+
+def planted_lane(d, batch, n=1024):
+    """tests/test_fast_mp.py:270-279."""
+    du = np.asarray(j_unit_norm(jnp.asarray(d)))
+    n_atoms, A = du.shape
+    sig = np.zeros((batch, 1, n), np.float32)
+    for i in range(batch):
+        for k in range(8):
+            pos = (53 + 199 * (i + 1) * (k + 1)) % (n - A)
+            sig[i, 0, pos : pos + A] += du[(5 * i + k) % n_atoms] * (5.0 * 0.8**k)
+        sig[i, 0, -64:] += du[(3 * i + 1) % n_atoms, :64] * 4.0
+    return sig
+
+
+@pytest.mark.parametrize("batch", [1, 3, 4])
+def test_pipelined_step_matches_unpipelined_and_mptpu(batch):
+    """tests/test_fast_mp.py:137-155 across the two packages: pipelined and
+    unpipelined give identical events and a bit-identical residual in the
+    port, and the port's pipelined events are mptpu's (Pallas pipelined
+    kernel in interpret mode)."""
+    sig = planted(D16, batch, 1024)
+    j, a = run_both(D16, sig, 7, block=128, fused=True, pipelined=True)
+    b = tsp.sparse_code_fast(torch.from_numpy(sig), torch.from_numpy(D16), n_steps=7,
+                             block=128, fused=True, pipelined=False)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert_same(j, a)
+
+
+def lane_state(d, sig, block=128):
+    """Initial (fm, bm, lanes, residual), gram_p, d2 and geometry of the
+    lane-table encode, built as sparse_code_fast builds them."""
+    import torch.nn.functional as F
+
+    d2 = tsp.fast_mp.unit_norm(torch.from_numpy(d))
+    geom = fast_geometry(sig.shape[-1], d.shape[-1], block)
+    fm, bm, res = tsp.encode_state(torch.from_numpy(sig), d2, geom)
+    bm = F.pad(bm, (0, geom.nb_pad - geom.n_blocks), value=tsp.fast_mp.TABLE_PAD)
+    lanes = torch.argmax(fm.reshape(*fm.shape[:2], geom.n_blocks, block), dim=-1)
+    lanes = F.pad(lanes.to(torch.int32), (0, geom.nb_pad - geom.n_blocks))
+    gram_p = F.pad(tsp.dictionary_gram(d2), (0, 1))
+    return (fm, bm, lanes, res), gram_p, d2, geom
+
+
+@pytest.mark.parametrize("batch,depth,gate_tail", [(4, 2, True), (5, 3, True), (4, 2, False)])
+def test_lane_table_encode_matches_mptpu(batch, depth, gate_tail):
+    """tests/test_fast_mp.py:260-293 across the two packages. Events
+    identical, values rtol 1e-4 / atol 1e-5, residual rtol 1e-3 / atol 1e-5
+    against mptpu's lane-table kernel (interpret mode); bit-identical to the
+    port's own whole-encode path; and after the encode the tables describe
+    the final map: lanes == argmax and bm == max of every real block.
+    Without the tail gate every step rewrites the tail blocks, which then
+    lie outside the window of an interior event."""
+    sig = planted_lane(D16, batch)
+    kw = dict(block=128, fused=True, whole_loop=True, depth=depth, gate_tail=gate_tail)
+    j, t = run_both(D16, sig, 9, lane_table=True, **kw)
+    assert (t.positions > 1024 - 128).any()   # the tail branch kept the lanes too
+    assert_same(j, t)
+    whole = tsp.sparse_code_fast(torch.from_numpy(sig), torch.from_numpy(D16), n_steps=9, **kw)
+    for x, y in zip(t, whole):
+        assert torch.equal(x, y)
+
+    state, gram_p, d2, geom = lane_state(D16, sig)
+    ev = tsp.cuda_fused_encode_lane(*state, d2, gram_p, n_steps=9, gate_tail=gate_tail,
+                                    **geom._asdict())
+    assert torch.equal(ev.atoms, t.atom_indices) and torch.equal(ev.positions, t.positions)
+    fm, bm, lanes, _ = state
+    blocks = fm.reshape(batch, 16, geom.n_blocks, 128)
+    assert torch.equal(lanes[..., : geom.n_blocks].long(), blocks.argmax(-1))
+    assert torch.equal(bm[..., : geom.n_blocks], blocks.amax(-1))
+    assert not lanes[..., geom.n_blocks :].any()         # pad columns stay zero
+    assert (bm[..., geom.n_blocks :] == tsp.fast_mp.TABLE_PAD).all()
+
+
+def test_lane_table_plain_selects_from_the_tables():
+    """fused_encode_lane_plain reads the winner's position from lanes and
+    its value from bm, never from the map: shifting the winner's lane entry
+    shifts the event, and scaling its bm entry scales the value."""
+    sig = planted_lane(D16, 2)
+    state, gram_p, d2, geom = lane_state(D16, sig)
+    ref = tsp.fused_encode_lane_plain(*(t.clone() for t in state), d2, gram_p, n_steps=1,
+                                      **geom._asdict())
+    fm, bm, lanes, res = (t.clone() for t in state)
+    flat = int(torch.argmax(bm[0].reshape(-1)))
+    atom, blk = divmod(flat, bm.shape[-1])
+    lanes[0, atom, blk] += 1
+    bm[0, atom, blk] *= 2.0
+    ev = tsp.fused_encode_lane_plain(fm, bm, lanes, res, d2, gram_p, n_steps=1, **geom._asdict())
+    assert int(ev.atoms[0, 0]) == int(ref.atoms[0, 0]) == atom
+    assert int(ev.positions[0, 0]) == int(ref.positions[0, 0]) + 1
+    assert float(ev.values[0, 0]) == 2.0 * float(ref.values[0, 0])
+    assert torch.equal(ev.positions[0, 1:], ref.positions[0, 1:])
+
+
+@pytest.mark.parametrize(
+    "batch,n_atoms,sms,want",
+    [(32, 512, 132, 4), (4, 512, 132, 8), (1, 512, 132, 8), (3, 16, 132, 8), (64, 512, 132, 2),
+     (200, 512, 132, 1), (4, 12, 132, 4), (40, 512, 132, 2)],
+)
+def test_cluster_size_rule(batch, n_atoms, sms, want):
+    """The largest of 8, 4, 2, 1 blocks per item that divides the atoms and
+    keeps batch * cluster within the card's SMs."""
+    assert tsp.cluster_size(batch, n_atoms, sms) == want
+
+
+@pytest.mark.parametrize("kind", ["grid", "fori"])
+@pytest.mark.parametrize("vpu", [False, True])
+def test_probe_on_cpu_takes_the_plain_version(kind, vpu):
+    """Both probe kinds return the (8, 128) tile after `steps` updates
+    acc = acc * 1.000001 + 1 with product and sum rounded separately in
+    float32 (scripts/grid_overhead_probe.py:55-81), bit for bit."""
+    from mptpu_torch.probes import probe_launches, probe_plain
+
+    kernels.reset_launches()
+    steps = 40
+    acc = np.float32(0.0)
+    for _ in range(steps if vpu else 0):
+        acc = np.float32(np.float32(acc * np.float32(1.000001)) + np.float32(1.0))
+    tile = probe_launches(kind, vpu, steps, device="cpu")
+    assert tile.shape == (8, 128) and tile.dtype == torch.float32
+    assert torch.equal(tile, torch.full((8, 128), float(acc)))
+    assert torch.equal(tile, probe_plain(vpu, steps))
+    assert kernels.LAUNCHES["probe_launches"] == 0
+    with pytest.raises(ValueError):
+        probe_launches("scan", vpu, steps, device="cpu")
 
 
 def test_whole_loop_batch_rule_falls_back_to_per_step():
@@ -164,6 +293,7 @@ def test_no_kernel_launches_on_cpu():
     kernels.reset_launches()
     sig = planted(D16, 3, 1024)
     for kw in (dict(fused=True, whole_loop=True), dict(fused=True, pipelined=False),
+               dict(fused=True), dict(fused=True, whole_loop=True, lane_table=True),
                dict(use_pallas=True, block_argmax=True)):
         tsp.sparse_code_fast(torch.from_numpy(sig), torch.from_numpy(D16), n_steps=3,
                              block=128, **kw)

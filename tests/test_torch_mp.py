@@ -93,3 +93,63 @@ def test_reconstruct_from_events_matches_mptpu_and_closes_the_residual():
     np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=1e-4, atol=1e-5)
     # signal = reconstruction + residual, clipped energy dropped in both
     np.testing.assert_allclose((tr + t.residual).numpy(), sig, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "d_shape,kw",
+    [((16, 64), {}), ((16, 1, 64), {}), ((8, 2, 64), {}), ((16, 64), dict(use_fft=True))],
+    ids=["2d_mono", "3d_mono", "3d_two_channel", "2d_fft"],
+)
+def test_dictionary_learning_step_matches_mptpu(d_shape, kw):
+    """One sweep on a planted signal with a clipped event and at least one
+    unused atom. Events are identical, so the learned dictionary differs
+    only by the order of float32 sums: atol 1e-5."""
+    d = RNG.standard_normal(d_shape).astype(np.float32)
+    channels = d_shape[1] if len(d_shape) == 3 else 1
+    sig = planted(d, 2, 1024, seed=11 + len(d_shape) + len(kw))[:, :channels]
+    coded = tsp.sparse_code(torch.from_numpy(sig), torch.from_numpy(d), n_steps=7)
+    assert (coded.positions > 1024 - d_shape[-1]).any()              # a clipped event
+    assert len(torch.unique(coded.atom_indices)) < d_shape[0]        # an unused atom
+    j = jsp.dictionary_learning_step(jnp.asarray(sig), jnp.asarray(d), n_steps=7, **kw)
+    t = tsp.dictionary_learning_step(torch.from_numpy(sig), torch.from_numpy(d), n_steps=7, **kw)
+    assert t.shape == d.shape and t.dtype == torch.float32
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-5, rtol=0)
+    # unit norm over all non-leading dims; unused atoms keep their direction
+    flat = t.reshape(d_shape[0], -1)
+    np.testing.assert_allclose(flat.norm(dim=-1).numpy(), 1.0, rtol=1e-4)
+    unused = sorted(set(range(d_shape[0])) - set(coded.atom_indices.reshape(-1).tolist()))
+    d_unit = torch.from_numpy(d).reshape(d_shape[0], -1)
+    d_unit = d_unit / d_unit.norm(dim=-1, keepdim=True)
+    np.testing.assert_allclose(flat[unused].numpy(), d_unit[unused].numpy(), atol=1e-6)
+
+
+def test_dictionary_learning_step_accepts_2d_signal_and_learns():
+    """Ten sweeps on a two-atom signal family lower the coding residual
+    (tests/test_matching_pursuit.py:100-111), in step with mptpu."""
+    true_d = RNG.standard_normal((2, 16)).astype(np.float32)
+    true_d /= np.linalg.norm(true_d, axis=-1, keepdims=True)
+    sig = np.zeros((1, 128), np.float32)
+    sig[0, 20:36] += 2.0 * true_d[0]
+    sig[0, 70:86] += 1.5 * true_d[1]
+    d0 = RNG.standard_normal((4, 16)).astype(np.float32)
+    dj, dt = jnp.asarray(d0), torch.from_numpy(d0)
+    r0 = tsp.sparse_code(torch.from_numpy(sig), dt, n_steps=2).residual
+    for _ in range(10):
+        dj = jsp.dictionary_learning_step(jnp.asarray(sig), dj, n_steps=2)
+        dt = tsp.dictionary_learning_step(torch.from_numpy(sig), dt, n_steps=2)
+    r1 = tsp.sparse_code(torch.from_numpy(sig), dt, n_steps=2).residual
+    assert float(r1.norm()) < float(r0.norm())
+    # ten Gauss-Seidel sweeps compound the rounding of each: atol 1e-4
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=1e-4, rtol=0)
+
+
+def test_first_selection_groups_order():
+    """Atoms are visited in first-selection order, step-major and
+    batch-minor; each atom's events keep their order."""
+    from mptpu_torch.sparse.matching_pursuit import _first_selection_groups
+
+    ai = torch.tensor([[5, 2], [2, 7], [5, 5], [0, 7]], dtype=torch.int32)   # (S=4, B=2)
+    atoms, order, bounds = _first_selection_groups(ai)
+    assert atoms == [5, 2, 7, 0]
+    groups = [order[lo:hi].tolist() for lo, hi in zip(bounds[:-1], bounds[1:])]
+    assert groups == [[0, 4, 5], [1, 2], [3, 7], [6]]

@@ -99,7 +99,15 @@ def test_launch_counters_stay_zero_on_cpu():
     rng = np.random.default_rng(5)
     sig = torch.from_numpy(rng.standard_normal((3, 1, 512)).astype(np.float32))
     d = torch.from_numpy(rng.standard_normal((8, 128)).astype(np.float32))
+    from mptpu_torch.probes import probe_launches
+
     sparse_code_fast(sig, d, n_steps=2, block=128, fused=True, whole_loop=True)
+    sparse_code_fast(sig, d, n_steps=2, block=128, fused=True)   # pipelined by default
+    sparse_code_fast(sig, d, n_steps=2, block=128, fused=True, whole_loop=True, lane_table=True,
+                     depth=1)
+    probe_launches("grid", True, steps=3, device="cpu")
+    assert set(kernels.LAUNCHES) >= {"cuda_fused_step_pipelined", "cuda_fused_encode_lane",
+                                     "probe_launches"}
     assert kernels.LAUNCHES == {k: 0 for k in kernels.LAUNCHES}
     assert kernels._lib is None   # nothing was built
 
@@ -108,7 +116,8 @@ def test_importing_the_port_needs_no_nvcc(tmp_path):
     env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path))
     code = (
         "import mptpu_torch, mptpu_torch.kernels, mptpu_torch.sparse, mptpu_torch.ops, "
-        "mptpu_torch.convert; print(mptpu_torch.kernels._lib is None)"
+        "mptpu_torch.convert, mptpu_torch.probes, mptpu_torch.sparse.multiband; "
+        "print(mptpu_torch.kernels._lib is None)"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
