@@ -14,6 +14,8 @@ Phases, each printing lines (any failure exits non-zero):
    samples, block 128) on a planted signal with decisive maxima; the
    cluster step kernel also against the one-block step kernel bit for bit
    (1, 3 and 32 items, and at the largest and smallest multiband band),
+   the whole-encode kernel at every cluster size the card admits against
+   the one-block step kernel looped, bit for bit,
    the lane-table encode against the whole-encode kernel bit for bit, the
    launch probe against its plain version;
 3. the paths, each with the launch counts set to 0 just before and read
@@ -28,7 +30,9 @@ Phases, each printing lines (any failure exits non-zero):
    decode_global``, timed, recon SNR rising after learning; the launch
    probe;
 4. each kernel's time beside its plain version's, its bound and, for the
-   boundary kernel, one ``torch.matmul`` computing the same product;
+   boundary kernel, one ``torch.matmul`` computing the same product; the
+   whole-encode and cluster step kernels by cluster size, with the clusters
+   the card holds at once beside each;
 5. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -273,8 +277,9 @@ def multiband_phase(dev, mb, peaks, sync, records):
     from mptpu_torch import kernels
     from mptpu_torch.ops import fft_frequency_decompose, unit_norm
     from mptpu_torch.sparse import (
-        BandSpec, MultibandDictionaryLearning, cuda_fused_step, cuda_fused_step_pipelined,
-        dictionary_gram, encode_state, fast_geometry, fused_step_applicable, fused_step_plain,
+        BandSpec, MultibandDictionaryLearning, cuda_fused_encode, cuda_fused_step,
+        cuda_fused_step_pipelined, dictionary_gram, encode_state, fast_geometry,
+        fused_step_applicable, fused_step_plain,
         sparse_code, sparse_code_fast,
     )
 
@@ -422,6 +427,20 @@ def multiband_phase(dev, mb, peaks, sync, records):
                                          kw, 4, sync)
         rec = records["cuda_fused_step_pipelined"]
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        # the whole-encode kernel takes a band's shapes too (more table
+        # columns than a lane holds in registers, rows fewer than stages)
+        looped, whole = ((fm.clone(), bm.clone(), res.clone()) for _ in range(2))
+        e1 = [cuda_fused_step(*looped, d2, gram_p, **kw) for _ in range(4)]
+        e2 = cuda_fused_encode(*whole, d2, gram_p, n_steps=4, **kw)
+        sync()
+        assert_identical(f"whole encode at band {size} vs the one-block step kernel looped", [
+            ("atoms", e2.atoms, torch.stack([e.atoms for e in e1])),
+            ("positions", e2.positions, torch.stack([e.positions for e in e1])),
+            ("values", e2.values, torch.stack([e.values for e in e1])),
+            ("fm", whole[0], looped[0]), ("bm", whole[1], looped[1]),
+            ("residual", whole[2], looped[2]),
+        ])
+        del looped, whole
         pos = []
         k4_ms = timed(lambda: pos.append(
             cuda_fused_step_pipelined(fm, bm, res, d2, gram_p, **kw).positions), reps, dev,
@@ -435,8 +454,9 @@ def multiband_phase(dev, mb, peaks, sync, records):
         else:
             rec.update(ms_smallest_band=k4_ms, bound_ms_smallest_band=bms)
         print(f"check + time cuda_fused_step_pipelined at band {size} (batch {batch}, map "
-              f"{tuple(fm.shape)}): bit-identical to the one-block kernel over 4 steps, max abs "
-              f"err vs plain {err:.3e}; {k4_ms:.4f} ms per launch (cuda_fused_step {k1_ms:.4f} "
+              f"{tuple(fm.shape)}): bit-identical to the one-block kernel over 4 steps (and so is "
+              f"cuda_fused_encode), max abs err vs plain {err:.3e}; {k4_ms:.4f} ms per launch "
+              f"(cuda_fused_step {k1_ms:.4f} "
               f"ms, plain {plain_ms:.4f} ms), bound {bms:.5f} ms ({by})")
 
 
@@ -453,7 +473,9 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
         fused_encode_lane_plain, fused_encode_plain, fused_step_plain, reconstruct_from_events,
         sparse_code, sparse_code_fast,
     )
-    from mptpu_torch.sparse.cuda_fused_mp import cluster_size, max_active_clusters
+    from mptpu_torch.sparse.cuda_fused_mp import (
+        cluster_size, encode_cluster_size, encode_plan, max_active_clusters,
+    )
     from mptpu_torch.device import no_tf32
     from mptpu_torch.probes import probe_launches, probe_plain
 
@@ -533,6 +555,47 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
     print(f"check cuda_fused_encode vs plain, {S} steps "
           f"({int((ep.positions > n - A).sum())} clipped events): events equal, max abs err "
           f"{records['cuda_fused_encode']['max_abs_err']:.3e}")
+    # the whole-encode kernel at every cluster size the card admits, a few
+    # items and steps, with and without the tail gate: bit for bit the
+    # one-block step kernel looped, and the plain version within the tail
+    # tolerance
+    on_card = dev.type == "cuda"   # CPU tensors take the plain versions: no launches
+    few, few_steps = min(3, B), min(10, S)
+    shapes = (N, A, block, geom.n_blocks, geom.upd_blocks)
+    sizes = [c for c in (1, 2, 4, 8) if N % c == 0]
+    if on_card:
+        refused = [c for c in sizes if encode_plan(*shapes, c).clusters < 1]
+        if refused:
+            fail(f"the card admits no cluster of {refused} blocks of the whole-encode kernel")
+    worst = 0.0
+    for gate in (True, False):
+        looped = (fm0[:few].clone(), bm0_pad[:few].clone(), res0[:few].clone())
+        e1 = [cuda_fused_step(*looped, d2, gram_p, gate_tail=gate, **kw) for _ in range(few_steps)]
+        e1 = [torch.stack(x) for x in zip(*e1)]
+        plain = (fm0[:few].clone(), bm0_pad[:few].clone(), res0[:few].clone())
+        e_plain = fused_encode_plain(*plain, d2, gram_p, n_steps=few_steps, gate_tail=gate, **kw)
+        for c in sizes:
+            st = (fm0[:few].clone(), bm0_pad[:few].clone(), res0[:few].clone())
+            e2 = cuda_fused_encode(*st, d2, gram_p, n_steps=few_steps, gate_tail=gate, cluster=c,
+                                   **kw)
+            sync()
+            name = f"fused encode, cluster of {c}, gate_tail={gate}"
+            assert_identical(f"{name}, against the one-block step kernel looped", [
+                ("atoms", e2.atoms, e1[0]), ("positions", e2.positions, e1[1]),
+                ("values", e2.values, e1[2]), ("fm", st[0], looped[0]), ("bm", st[1], looped[1]),
+                ("residual", st[2], looped[2]),
+            ])
+            assert_events(f"{name}, against plain", e2, e_plain)
+            assert_close(f"{name} fm", st[0], plain[0], TAIL_TOL)
+            assert_close(f"{name} bm", st[1], plain[1], TAIL_TOL)
+            assert_close(f"{name} residual", st[2], plain[2], RESIDUAL_TOL)
+            worst = max(worst, max_err(zip(st, plain)))
+        del looped, plain
+    records["cuda_fused_encode"]["max_abs_err"] = max(records["cuda_fused_encode"]["max_abs_err"],
+                                                      worst)
+    print(f"check cuda_fused_encode at cluster sizes {sizes}, {few} items x {few_steps} steps, "
+          f"with and without the tail gate: bit-identical to cuda_fused_step looped (events, fm, "
+          f"bm, residual), max abs err vs plain {worst:.3e}")
     # the lane-table encode: bit for bit the whole-encode kernel's result,
     # its plain version within the tail tolerance, and tables that describe
     # the final map
@@ -566,7 +629,6 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
           f"max abs err vs plain {records['cuda_fused_encode_lane']['max_abs_err']:.3e}")
     # without the tail gate the tail blocks are rewritten at every step,
     # outside the window of an interior event: a few items, a few steps
-    few = min(3, B)
     ungated = (fm0[:few].clone(), bm0_pad[:few].clone(), res0[:few].clone())
     ungated_l = (ungated[0].clone(), ungated[1].clone(), lanes0[:few].clone(), ungated[2].clone())
     eu = cuda_fused_encode(*ungated, d2, gram_p, n_steps=10, gate_tail=False, **kw)
@@ -611,7 +673,6 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
         sync()
         t_e2e.append((time.perf_counter() - t0) * 1e3)
     main_launches = dict(kernels.LAUNCHES)
-    on_card = dev.type == "cuda"   # CPU tensors take the plain versions: no launches
     if main_launches["cuda_fused_encode"] != (runs + 1 if on_card else 0):
         fail(f"bench path: {main_launches} for {runs + 1} encodes")
     records["cuda_fused_encode"]["launches"] = main_launches["cuda_fused_encode"]
@@ -659,6 +720,15 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
     bms, by = bound(b_bytes, b_flops, peaks)
     records["cuda_fused_encode"].update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
                                         bound_by=by, library_ms=None)
+    if on_card:
+        c = encode_cluster_size(B, N, lambda c: encode_plan(*shapes, c).clusters)
+        plan = encode_plan(*shapes, c)
+        print(f"bench path: cuda_fused_encode runs {B} clusters of {c} blocks "
+              f"({plan.smem_bytes} bytes of shared memory a block: ring of {plan.stages} stages, "
+              f"table {'on chip' if plan.table_on_chip else 'in global memory'}); the card holds "
+              f"{plan.clusters} such clusters at once (cudaOccupancyMaxActiveClusters)")
+        if plan.clusters < B:
+            fail(f"bench path: {B} clusters, {plan.clusters} resident: the encode runs in waves")
     print(f"bench path (sparse_code_fast, fused whole-loop, block {block}, depth "
           f"{cfg['depth']}): {S * B / (ms / 1e3):.1f} atoms/s, {ms:.3f} ms per encode "
           f"(runs {', '.join(f'{t:.3f}' for t in t_e2e)}); split: gram {gram_ms:.3f} ms, "
@@ -761,6 +831,9 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
             return torch.matmul(d2_b, windows.transpose(1, 2))
 
     k3_lib = timed(library_call, 20, dev)
+    gather_ms = timed(lambda: res[:, tail_idx], 20, dev)
+    print(f"time residual[:, tail_idx] (the gather that builds windows {tuple(windows.shape)} at "
+          f"every step of the use_pallas path, outside the kernel): {gather_ms:.4f} ms")
     k3_bytes = 4 * (B * A * A + N * A + B * N * A + B * N * (A // block))
     bms, by = bound(k3_bytes, 2 * B * N * A * A, peaks)
     records["cuda_boundary_update"].update(ms=k3_ms, plain_ms=k3_plain, bound_ms=bms, bound_by=by,
@@ -806,6 +879,28 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
         print("time cuda_fused_step_pipelined at the bench shapes by cluster size "
               f"(ms per launch, clusters the card holds at once): "
               + ", ".join(f"{c}: {sweep[c]:.4f} ({max_active_clusters(A, c)})" for c in sweep))
+        k2_sweep = {}
+        for c in sizes:   # the bench encode again, at every cluster size
+            st = fresh_encode_state()
+            k2_sweep[c] = timed(
+                lambda: cuda_fused_encode(*st, d2_b, gram_b, n_steps=S, cluster=c, **kw),
+                1, dev, warmup=False)
+            del st
+        print("time cuda_fused_encode at the bench shapes by cluster size: ms per encode "
+              "(clusters the card holds at once, ring stages, table on chip): "
+              + ", ".join(
+                  f"{c}: {ms:.3f} ({encode_plan(*shapes, c).clusters}, "
+                  f"{encode_plan(*shapes, c).stages}, {encode_plan(*shapes, c).table_on_chip})"
+                  for c, ms in k2_sweep.items()))
+        # what a wave costs: as many items as clusters of 4 are resident at once
+        fit = encode_plan(*shapes, 4).clusters if N % 4 == 0 else 0
+        if 0 < fit < B:
+            st = tuple(t[:fit].contiguous() for t in fresh_encode_state())
+            fit_ms = timed(lambda: cuda_fused_encode(*st, d2_b, gram_b, n_steps=S, cluster=4, **kw),
+                           1, dev, warmup=False)
+            del st
+            print(f"time cuda_fused_encode, the first {fit} of the {B} items (all that clusters of "
+                  f"4 hold at once), cluster of 4: {fit_ms:.3f} ms per encode")
     for name, r in records.items():
         lib = "" if r["library_ms"] is None else f", library (torch.matmul) {r['library_ms']:.4f} ms"
         print(f"time {name}: {r['ms']:.4f} ms per launch, plain {r['plain_ms']:.4f} ms, bound "

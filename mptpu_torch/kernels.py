@@ -36,7 +36,8 @@ _I = ctypes.c_int
 # C function name -> argument types (pointers and the stream are void*)
 _SIGNATURES = {
     "mp_fused_step": [_P] * 9 + [_I] * 12 + [_P],
-    "mp_fused_encode": [_P] * 9 + [_I] * 13 + [_P],
+    "mp_fused_encode": [_P] * 9 + [_I] * 14 + [_P],
+    "mp_fused_encode_plan": [_I] * 6 + [_P],
     "mp_boundary_update": [_P] * 4 + [_I] * 6 + [_P],
     "mp_fused_step_pipelined": [_P] * 9 + [_I] * 13 + [_P],
     "mp_fused_step_pipelined_max_clusters": [_I, _I],

@@ -21,6 +21,7 @@ from .cuda_fused_mp import (
     fused_encode_lane_plain,
     fused_step_applicable,
     cluster_size,
+    encode_cluster_size,
 )
 from .cuda_mp import cuda_boundary_update, boundary_update_plain
 
@@ -46,6 +47,7 @@ __all__ = [
     "fused_encode_lane_plain",
     "fused_step_applicable",
     "cluster_size",
+    "encode_cluster_size",
     "cuda_boundary_update",
     "boundary_update_plain",
 ]

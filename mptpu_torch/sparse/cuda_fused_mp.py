@@ -17,8 +17,9 @@ lane-padded) and the padded residual rows (B, n_samples + A):
 ``cuda_fused_step`` launches that once per step with one thread block
 per item; ``cuda_fused_step_pipelined`` is the same function with each
 item's step shared by a thread-block cluster; ``cuda_fused_encode`` runs
-all ``n_steps`` in one launch; ``cuda_fused_encode_lane`` does so with a
-table of each block's first-maximum lane, so that selecting reads no map
+all ``n_steps`` in one launch, one cluster per item looping over the steps;
+``cuda_fused_encode_lane`` does so in one block per item with a table of
+each block's first-maximum lane, so that selecting reads no map
 block. Their plain PyTorch versions (``fused_step_plain``,
 ``fused_encode_plain``, ``fused_encode_lane_plain``) sit here too; a CPU
 tensor takes them. On a CUDA tensor the wrappers launch the kernel or
@@ -27,6 +28,7 @@ raise.
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 from typing import NamedTuple
 
@@ -241,6 +243,52 @@ def max_active_clusters(atom_size: int, clusters_of: int) -> int:
     return n
 
 
+class EncodePlan(NamedTuple):
+    """How ``cuda_fused_encode``'s kernel lays out one block's shared memory
+    at a cluster size, and how many such clusters the card holds at once."""
+
+    clusters: int        # resident at once (0: the shapes admit no such plan)
+    stages: int          # depth of the ring of (window, gram row) stages
+    table_on_chip: bool  # the rank's share of the block-max table in shared memory
+    smem_bytes: int
+
+
+@lru_cache(maxsize=None)
+def encode_plan(n_atoms: int, atom_size: int, block: int, n_blocks: int, upd_blocks: int,
+                cluster: int) -> EncodePlan:
+    """The whole-encode kernel's plan on the current card (CUDA's occupancy
+    query, no launch) with ``cluster`` blocks per item."""
+    out = (ctypes.c_int * 4)()
+    err = kernels.library().mp_fused_encode_plan(
+        n_atoms, atom_size, block, n_blocks, upd_blocks, cluster, out)
+    if err != 0:
+        raise RuntimeError(f"mp_fused_encode_plan: CUDA error {err}")
+    return EncodePlan(out[0], out[1], bool(out[2]), out[3])
+
+
+def encode_cluster_size(batch: int, n_atoms: int, resident) -> int:
+    """Thread blocks per item for ``cuda_fused_encode``: the largest of 8, 4,
+    2, 1 that divides ``n_atoms`` and whose ``batch`` clusters the card holds
+    all at once, ``resident(c)`` being how many clusters of ``c`` blocks it
+    holds. The kernel loops over every step of the encode, so a second wave
+    of clusters would double its time; 1 when nothing else fits."""
+    for c in (8, 4, 2):
+        if n_atoms % c == 0 and resident(c) >= batch:
+            return c
+    return 1
+
+
+def check_bulk_copy_alignment(fm, gram_p, atom_size: int, block: int) -> None:
+    """Raise unless the whole-encode kernel's bulk copies are legal: an
+    update window of ``fm`` and a row of ``gram_p`` must start on 16 bytes
+    and be a multiple of 16 bytes long."""
+    if block % 4 or atom_size % 4:
+        raise ValueError("block and atom_size must be multiples of 4 (16-byte bulk copies)")
+    for name, t in (("fm", fm), ("gram_p", gram_p)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: storage must start on a 16-byte boundary")
+
+
 # ---- kernel wrappers
 
 
@@ -301,23 +349,35 @@ def cuda_fused_step(
 
 
 def cuda_fused_encode(
-    fm, bm, residual, d2, gram_p, *, n_steps: int, gate_tail: bool = True, **geometry
+    fm, bm, residual, d2, gram_p, *, n_steps: int, gate_tail: bool = True,
+    cluster: int | None = None, **geometry
 ) -> StepEvents:
     """The whole ``n_steps`` greedy loop, in place on ``fm``, ``bm`` and
     ``residual``; events are (n_steps, B).
 
     CPU tensors take ``fused_encode_plain``; CUDA tensors launch
-    ``csrc/mp_fused.cu:mp_fused_encode`` once (one thread block per item,
-    looping over the steps with its residual row in shared memory, so
-    n_samples + 17 * atom_size floats must fit in 227 KB)."""
+    ``csrc/mp_fused.cu:mp_fused_encode`` once: one thread-block cluster per
+    item looping over the steps, each of its ``cluster`` blocks (1, 2, 4 or
+    8 and a divisor of N) owning ``N / cluster`` atom rows. By default
+    ``encode_cluster_size`` picks the largest cluster whose B clusters the
+    card holds at once (``encode_plan``). The result does not depend on
+    ``cluster``."""
+    B, N = fm.shape[:2]
+    if cluster is not None and (cluster not in (1, 2, 4, 8) or N % cluster):
+        raise ValueError(f"cluster must be 1, 2, 4 or 8 and divide {N} atoms")
     if fm.device.type == "cpu":
         return fused_encode_plain(
             fm, bm, residual, d2, gram_p, n_steps=n_steps, gate_tail=gate_tail, **geometry
         )
-    # a residual row too long for shared memory fails the launcher's
-    # cudaFuncSetAttribute, which the wrapper raises on
+    if cluster is None:
+        shapes = (N, geometry["atom_size"], geometry["block"], geometry["n_blocks"],
+                  geometry["upd_blocks"])
+        cluster = encode_cluster_size(B, N, lambda c: encode_plan(*shapes, c).clusters)
+    check_bulk_copy_alignment(fm, gram_p, geometry["atom_size"], geometry["block"])
+    # shapes whose plan does not fit shared memory fail in the launcher,
+    # which the wrapper raises on
     return _launch_step("mp_fused_encode", "cuda_fused_encode", fm, bm, residual, d2, gram_p,
-                        (n_steps, fm.shape[0]), gate_tail, geometry, n_steps)
+                        (n_steps, B), gate_tail, geometry, n_steps, cluster)
 
 
 def cuda_fused_step_pipelined(

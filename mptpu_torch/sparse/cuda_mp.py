@@ -4,8 +4,9 @@
 Every step of the unfused engine ends by recomputing the last
 ``atom_size`` map positions exactly (the gram update is wrong there for
 clipped events, see ``fast_mp.py``). ``cuda_boundary_update`` does it in
-one CUDA kernel (``csrc/mp_boundary.cu``): the product, the in-place map
-write and the per-block maxima. ``boundary_update_plain`` is the same
+one CUDA kernel (``csrc/mp_boundary.cu``, a register-tiled f32 product fed
+by a ring of asynchronous copies): the product, the in-place map write and
+the per-block maxima. ``boundary_update_plain`` is the same
 function in PyTorch ops; a CPU tensor takes it.
 """
 
@@ -23,6 +24,17 @@ def _tail_geometry(fm, d, tail_start, block):
     if tail_start % block or atom_size % block or tail_start % atom_size:
         raise ValueError("the tail must be whole blocks, aligned to atom_size in fm")
     return batch, n_atoms, W, atom_size
+
+
+def check_copy_alignment(windows, d) -> None:
+    """Raise unless the kernel's 16-byte copies along the taps are legal:
+    rows of ``windows`` and ``d`` must be a multiple of 4 floats long and
+    the tensors must start on 16 bytes."""
+    if d.shape[-1] % 4:
+        raise ValueError("atom_size must be a multiple of 4 (16-byte copies along the taps)")
+    for name, t in (("windows", windows), ("d", d)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: storage must start on a 16-byte boundary")
 
 
 def boundary_update_plain(fm, bm, windows, d, tail_start: int, block: int):
@@ -54,6 +66,7 @@ def cuda_boundary_update(fm, bm, windows, d, tail_start: int, block: int):
     kernels.check("fm", fm, (batch, n_atoms, W), device=dev)
     kernels.check("windows", windows, (batch, atom_size, atom_size), device=dev)
     kernels.check("d", d, (n_atoms, atom_size), device=dev)
+    check_copy_alignment(windows, d)
     if bm.device != dev or bm.dtype != torch.float32:
         raise ValueError("bm: expected a float32 tensor on the map's device")
     tmax = torch.empty((batch, n_atoms, atom_size // block), dtype=torch.float32, device=dev)

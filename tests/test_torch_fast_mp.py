@@ -17,9 +17,11 @@ import torch
 from mptpu import sparse as jsp
 from mptpu.ops import unit_norm as j_unit_norm
 from mptpu.sparse.pallas_fused_mp import fused_step_applicable as j_applicable
+from mptpu.sparse.pallas_fused_mp import pallas_fused_encode
 from mptpu.sparse.pallas_mp import pallas_boundary_update
 from mptpu_torch import kernels
 from mptpu_torch import sparse as tsp
+from mptpu_torch.sparse import cuda_fused_mp, cuda_mp
 from mptpu_torch.sparse.fast_mp import fast_geometry
 
 RNG = np.random.default_rng(31)
@@ -298,3 +300,158 @@ def test_no_kernel_launches_on_cpu():
         tsp.sparse_code_fast(torch.from_numpy(sig), torch.from_numpy(D16), n_steps=3,
                              block=128, **kw)
     assert all(v == 0 for v in kernels.LAUNCHES.values())
+
+
+# clusters of 8, 4, 2, 1 blocks of the whole-encode kernel that an H100 holds
+# at once at the bench shapes (cudaOccupancyMaxActiveClusters)
+RESIDENT = {8: 15, 4: 30, 2: 66, 1: 132}
+
+
+@pytest.mark.parametrize(
+    "batch,n_atoms,want",
+    [(32, 512, 2), (4, 512, 8), (15, 512, 8), (16, 512, 4), (30, 512, 4), (31, 512, 2),
+     (66, 512, 2), (67, 512, 1), (128, 512, 1), (5, 7, 1), (3, 12, 4), (40, 12, 2), (200, 512, 1)],
+)
+def test_encode_cluster_size_rule(batch, n_atoms, want):
+    """The largest of 8, 4, 2, 1 blocks per item that divides the atoms and
+    whose `batch` clusters are all resident at once: 32 items where only 30
+    clusters of 4 fit take 2; 1 when nothing larger divides or fits."""
+    assert tsp.encode_cluster_size(batch, n_atoms, RESIDENT.get) == want
+
+
+def test_encode_cluster_size_asks_only_divisors():
+    asked = []
+
+    def resident(c):
+        asked.append(c)
+        return 1000
+
+    assert tsp.encode_cluster_size(4, 12, resident) == 4
+    assert asked == [4]
+
+
+def encode_state_np(batch, gate_tail_signal=planted_lane):
+    """Initial state of the whole-encode kernels as numpy arrays, built as
+    sparse_code_fast builds it (lane-padded table)."""
+    sig = gate_tail_signal(D16, batch)
+    (fm, bm, _, res), gram_p, d2, geom = lane_state(D16, sig)
+    return [t.numpy() for t in (fm, bm, res, d2, gram_p)], geom
+
+
+@pytest.mark.parametrize("batch,gate_tail", [(4, True), (5, True), (4, False)])
+def test_fused_encode_wrapper_matches_pallas_fused_encode(batch, gate_tail):
+    """cuda_fused_encode on CPU tensors (its plain version) against mptpu's
+    pallas_fused_encode in interpret mode on the same initial state: events
+    identical, values rtol 1e-4 / atol 1e-5, residual rtol 1e-3 / atol 1e-5,
+    map and table (whose tails are sums taken in another order) rtol 1e-4 /
+    atol 1e-4; the result does not depend on `cluster`."""
+    arrays, geom = encode_state_np(batch)
+    kw = geom._asdict()
+    jf, jb, jr, ja, jp, jv = pallas_fused_encode(
+        *(jnp.asarray(a) for a in arrays), n_steps=9, depth=2, gate_tail=gate_tail,
+        interpret=True, **kw)
+    kernels.reset_launches()
+    for cluster in (None, 4):
+        fm, bm, res, d2, gram_p = (torch.from_numpy(a.copy()) for a in arrays)
+        ev = tsp.cuda_fused_encode(fm, bm, res, d2, gram_p, n_steps=9, gate_tail=gate_tail,
+                                   cluster=cluster, **kw)
+        assert (ev.positions > 1024 - 128).any()
+        np.testing.assert_array_equal(ev.atoms.numpy(), np.asarray(ja))
+        np.testing.assert_array_equal(ev.positions.numpy(), np.asarray(jp))
+        np.testing.assert_allclose(ev.values.numpy(), np.asarray(jv), rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(res.numpy(), np.asarray(jr), rtol=1e-3, atol=1e-5)
+        np.testing.assert_allclose(fm.numpy(), np.asarray(jf), rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(bm.numpy(), np.asarray(jb), rtol=1e-4, atol=1e-4)
+    assert kernels.LAUNCHES["cuda_fused_encode"] == 0
+
+
+@pytest.mark.parametrize("cluster", [0, 3, 5, 16, 32])
+def test_fused_encode_refuses_a_bad_cluster(cluster):
+    """1, 2, 4 or 8 blocks per item, and a divisor of the atoms (16 here)."""
+    arrays, geom = encode_state_np(4)
+    with pytest.raises(ValueError, match="cluster"):
+        tsp.cuda_fused_encode(*(torch.from_numpy(a) for a in arrays), n_steps=1, cluster=cluster,
+                              **geom._asdict())
+
+
+def test_fused_wrappers_refuse_shapes_that_fail_the_gate():
+    """The kernel wrappers' argument check refuses shapes outside
+    fused_step_applicable (here 1,000 samples: not a multiple of 128) and a
+    map whose width is not n_blocks * block, before anything is launched."""
+    d2 = tsp.fast_mp.unit_norm(torch.from_numpy(D16))
+    gram_p = torch.zeros(16, 16, 256)
+    for n, widen in ((1000, 0), (1024, 128)):
+        geom = fast_geometry(n, 128, 128)
+        fm = torch.zeros(2, 16, geom.W + widen)
+        bm = torch.zeros(2, 16, geom.n_blocks)
+        res = torch.zeros(2, n + 128)
+        with pytest.raises(ValueError, match="gate"):
+            cuda_fused_mp._check_step_args(fm, bm, res, d2, gram_p, **geom._asdict())
+
+
+def test_bulk_copy_alignment_check():
+    """The whole-encode kernel's bulk copies need 16-byte aligned windows
+    and gram rows: a misaligned storage offset or a block that is not a
+    multiple of 4 floats raises; aligned tensors pass."""
+    fm = torch.zeros(2 * 16 * 1280 + 1)
+    gram_p = torch.zeros(16 * 16 * 256 + 1)
+    aligned = (fm[:-1].view(2, 16, 1280), gram_p[:-1].view(16, 16, 256))
+    assert aligned[0].data_ptr() % 16 == 0
+    cuda_fused_mp.check_bulk_copy_alignment(*aligned, atom_size=128, block=128)
+    with pytest.raises(ValueError, match="fm"):
+        cuda_fused_mp.check_bulk_copy_alignment(fm[1:].view(2, 16, 1280), aligned[1], 128, 128)
+    with pytest.raises(ValueError, match="gram_p"):
+        cuda_fused_mp.check_bulk_copy_alignment(aligned[0], gram_p[1:].view(16, 16, 256), 128, 128)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        cuda_fused_mp.check_bulk_copy_alignment(*aligned, atom_size=128, block=130)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        cuda_fused_mp.check_bulk_copy_alignment(*aligned, atom_size=126, block=128)
+
+
+def test_boundary_copy_alignment_check():
+    """The boundary kernel copies 16 bytes at a time along the taps: rows
+    must be a multiple of 4 floats and the tensors 16-byte aligned."""
+    windows = torch.zeros(2 * 128 * 128 + 1)
+    d = torch.zeros(16 * 128 + 1)
+    ok = (windows[:-1].view(2, 128, 128), d[:-1].view(16, 128))
+    cuda_mp.check_copy_alignment(*ok)
+    with pytest.raises(ValueError, match="windows"):
+        cuda_mp.check_copy_alignment(windows[1:].view(2, 128, 128), ok[1])
+    with pytest.raises(ValueError, match="d:"):
+        cuda_mp.check_copy_alignment(ok[0], d[1:].view(16, 128))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        cuda_mp.check_copy_alignment(torch.zeros(2, 126, 126), torch.zeros(16, 126))
+
+
+@pytest.mark.parametrize("block", [64, 128])
+def test_boundary_update_wrapper_matches_pallas_kernel_in_place(block):
+    """cuda_boundary_update on CPU tensors against pallas_boundary_update
+    (interpret mode) at the 16-atom / 128-tap / 1,024-sample shapes, for a
+    table block equal to the kernel's 128-position tile and a smaller one:
+    tail and maxima rtol 1e-4 / atol 1e-4, nothing written outside the tail
+    and its table blocks, a lane-padded table's pad columns untouched."""
+    B, N, A = 3, 16, 128
+    g = fast_geometry(1024, A, block)
+    rng = np.random.default_rng(17)
+    fm = rng.standard_normal((B, N, g.W)).astype(np.float32)
+    bm = rng.standard_normal((B, N, g.nb_pad)).astype(np.float32)
+    windows = rng.standard_normal((B, A, A)).astype(np.float32)
+    d = np.array(j_unit_norm(jnp.asarray(D16)))
+    jf, jb = pallas_boundary_update(
+        jnp.asarray(fm), jnp.asarray(bm[..., : g.n_blocks]), jnp.asarray(windows), jnp.asarray(d),
+        g.tail_start, block)
+    tf, tb = torch.from_numpy(fm.copy()), torch.from_numpy(bm.copy())
+    kernels.reset_launches()
+    tsp.cuda_boundary_update(tf, tb, torch.from_numpy(windows), torch.from_numpy(d),
+                             g.tail_start, block)
+    assert kernels.LAUNCHES["cuda_boundary_update"] == 0
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(tb[..., : g.n_blocks].numpy(), np.asarray(jb), rtol=1e-4, atol=1e-4)
+    ts, te = g.tail_start, g.tail_start + A
+    np.testing.assert_array_equal(tf[:, :, :ts].numpy(), fm[:, :, :ts])
+    np.testing.assert_array_equal(tf[:, :, te:].numpy(), fm[:, :, te:])
+    np.testing.assert_array_equal(tb[..., g.n_blocks :].numpy(), bm[..., g.n_blocks :])
+    t0 = ts // block
+    untouched = np.ones(g.nb_pad, bool)
+    untouched[t0 : t0 + A // block] = False
+    np.testing.assert_array_equal(tb.numpy()[..., untouched], bm[..., untouched])
