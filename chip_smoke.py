@@ -13,10 +13,13 @@ Phases, each printing lines (any failure exits non-zero):
    card, at the bench shapes (32 items, 512 atoms x 512 taps, 16,384
    samples, block 128) on a planted signal with decisive maxima; the
    cluster step kernel also against the one-block step kernel bit for bit
-   (1, 3 and 32 items, and at the largest and smallest multiband band),
-   the whole-encode kernel at every cluster size the card admits against
-   the one-block step kernel looped, bit for bit,
-   the lane-table encode against the whole-encode kernel bit for bit, the
+   (1, 3 and 32 items, clusters of 1, 2, 4, 8 and 16, with and without the
+   tail gate, at 2,048-tap atoms, and at the largest and smallest multiband
+   band), both step kernels' chains of ``n_steps`` launches against the same
+   steps launched one by one, bit for bit, the whole-encode kernel at every
+   cluster size the card admits against the one-block step kernel looped,
+   bit for bit, the lane-table encode against the whole-encode kernel bit
+   for bit, the
    launch probe against its plain version;
 3. the paths, each with the launch counts set to 0 just before and read
    just after: the bench configuration through ``sparse_code_fast``
@@ -30,9 +33,12 @@ Phases, each printing lines (any failure exits non-zero):
    decode_global``, timed, recon SNR rising after learning; the launch
    probe;
 4. each kernel's time beside its plain version's, its bound and, for the
-   boundary kernel, one ``torch.matmul`` computing the same product; the
-   whole-encode and cluster step kernels by cluster size, with the clusters
-   the card holds at once beside each;
+   boundary kernel, one ``torch.matmul`` computing the same product; the two
+   step kernels per step from a chain of launches, with and without
+   programmatic stream serialization; a chain of one encode's steps at each
+   multiband band beside the whole-encode kernel doing the same steps in one
+   launch; the whole-encode and cluster step kernels by cluster size, with
+   the clusters the card holds at once beside each;
 5. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -58,6 +64,9 @@ BENCH = dict(batch=32, n_atoms=512, atom_size=512, n_samples=16384, n_steps=100,
 # scripts/multiband_bench.py:30-33
 MULTIBAND = dict(n_samples=2**15, steps=64, n_atoms=512, atom_size=128, batch=4, learn_iters=2,
                  sizes=(512, 1024, 2048, 4096, 8192, 16384, 32768))
+# atoms of more taps than a block of the step kernels holds in registers
+LONG_ATOMS = dict(batch=2, n_atoms=16, atom_size=2048, n_samples=16384, n_steps=4, block=128,
+                  clip_taps=1600)
 PROBE_STEPS = 3200   # scripts/grid_overhead_probe.py:53
 HOLD_CYCLES = 20_000_000   # about 10 ms of device spinning ahead of a timed run
 
@@ -78,8 +87,9 @@ def fail(msg: str) -> None:
 def planted_signal(cfg, seed: int = 1):
     """(dictionary, signal): per item, n_steps + 20 overlapping interior
     plants (distinct atoms where there are enough) with geometrically falling amplitudes, and
-    one clipped plant whose atom runs 212 taps past the end (the largest
-    event on even items, so the first step clips there)."""
+    one clipped plant of ``clip_taps`` taps (300 unless ``cfg`` says
+    otherwise) whose atom runs on past the end (the largest event on even
+    items, so the first step clips there)."""
     rng = np.random.default_rng(seed)
     N, A, n, B = cfg["n_atoms"], cfg["atom_size"], cfg["n_samples"], cfg["batch"]
     d = rng.standard_normal((N, A)).astype(np.float32)
@@ -91,7 +101,7 @@ def planted_signal(cfg, seed: int = 1):
         pos = rng.integers(0, n - A, n_plants)
         for k in range(n_plants):
             sig[i, 0, pos[k] : pos[k] + A] += du[atoms[k]] * (10.0 * 0.97**k)
-        inside = min(300, A - 1)
+        inside = min(cfg.get("clip_taps", 300), A - 1)
         sig[i, 0, n - inside :] += du[rng.integers(N), :inside] * (20.0 if i % 2 == 0 else 6.0)
     return d, sig
 
@@ -167,21 +177,24 @@ def timed(fn, reps: int, dev, warmup: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def step_traffic(cfg, geom, positions, table_reads: bool, lane_table: bool = False):
+def step_traffic(cfg, geom, positions, chain: bool, lane_table: bool = False):
     """(bytes, flops) the fused step body must move and compute for the
-    events ``positions`` (any shape): per item-step one gram row read and
-    the update window read and written (plus the block-max table read when
-    the table is an input of each call), and either the winner's map block
+    events ``positions`` (steps, items): per item-step one gram row read and
+    the update window read and written, and either the winner's map block
     read by the refine or, with ``lane_table``, the window blocks' lanes
     written; per clipped event the N x A x A tail product and its N x A
-    write."""
+    write. ``chain``: the steps are one chain of a per-step kernel's
+    launches, which reads each item's block-max table once (its first launch)
+    and at every step the 2 x N words of the rows' maxima; otherwise the
+    caller adds what its kernel reads and writes once."""
     N, A = cfg["n_atoms"], cfg["atom_size"]
     upd_w = geom.upd_blocks * geom.block
     item_steps = positions.numel()
     clipped = int((positions > geom.n_samples - A).sum())
-    per = N * 2 * A + 2 * N * upd_w + (N * geom.n_blocks if table_reads else 0)
+    per = N * 2 * A + 2 * N * upd_w + (2 * N if chain else 0)
     per += N * geom.upd_blocks if lane_table else geom.block
-    return 4 * (item_steps * per + clipped * N * A), 2 * N * A * A * clipped
+    once = positions.shape[-1] * N * geom.n_blocks if chain else 0
+    return 4 * (item_steps * per + once + clipped * N * A), 2 * N * A * A * clipped
 
 
 def bound(bytes_, flops, peaks):
@@ -208,61 +221,111 @@ def initial_lanes(fm, geom):
     return F.pad(lanes.to(torch.int32), (0, geom.nb_pad - geom.n_blocks))
 
 
+def stack_events(steps):
+    """Events of single steps, each (B,), stacked (n_steps, B)."""
+    import torch
+
+    from mptpu_torch.sparse import StepEvents
+
+    return StepEvents(*(torch.stack(x) for x in zip(*steps)))
+
+
 def cluster_step_check(name, state, d2, gram_p, kw, n_steps, sync, gate_tail=True):
     """``n_steps`` steps from ``state`` (fm, bm, residual) through the
-    cluster step kernel, the one-block step kernel and the plain version:
-    the two kernels must agree bit for bit after every step, and with the
-    plain version within the tail tolerance. Returns (max abs err against
-    the plain version, clipped events)."""
+    one-block step kernel launched step by step and the plain version
+    (events equal after every step, state within the tail tolerance); then
+    the same steps through the one-block kernel as one chain, and through
+    the cluster step kernel at every cluster size, step by step and as one
+    chain with and without programmatic stream serialization: events, map,
+    table and residual must equal the one-block kernel's bit for bit.
+    Returns (max abs err against the plain version, clipped events)."""
     from mptpu_torch.sparse import cuda_fused_step, cuda_fused_step_pipelined, fused_step_plain
 
-    sts = [tuple(t.clone() for t in state) for _ in range(3)]
-    n_clip = 0
+    def fresh():
+        return tuple(t.clone() for t in state)
+
+    one, plain = fresh(), fresh()
+    e1, n_clip = [], 0
     for step in range(n_steps):
-        e4 = cuda_fused_step_pipelined(*sts[0], d2, gram_p, gate_tail=gate_tail, **kw)
-        e1 = cuda_fused_step(*sts[1], d2, gram_p, gate_tail=gate_tail, **kw)
-        ep = fused_step_plain(*sts[2], d2, gram_p, gate_tail=gate_tail, **kw)
+        e1.append(cuda_fused_step(*one, d2, gram_p, gate_tail=gate_tail, **kw))
+        ep = fused_step_plain(*plain, d2, gram_p, gate_tail=gate_tail, **kw)
         sync()
-        assert_identical(f"{name}, step {step}, against the one-block kernel", [
-            ("atoms", e4.atoms, e1.atoms), ("positions", e4.positions, e1.positions),
-            ("values", e4.values, e1.values), ("fm", sts[0][0], sts[1][0]),
-            ("bm", sts[0][1], sts[1][1]), ("residual", sts[0][2], sts[1][2]),
-        ])
-        assert_events(f"{name}, step {step}, against plain", e4, ep)
+        assert_events(f"{name}, step {step}, one-block kernel against plain", e1[-1], ep)
         n_clip += int((ep.positions > kw["n_samples"] - kw["atom_size"]).sum())
-    assert_close(f"{name} fm", sts[0][0], sts[2][0], TAIL_TOL)
-    assert_close(f"{name} bm", sts[0][1], sts[2][1], TAIL_TOL)
-    assert_close(f"{name} residual", sts[0][2], sts[2][2], RESIDUAL_TOL)
-    return max_err(zip(sts[0], sts[2])), n_clip
+    e1 = stack_events(e1)
+    assert_close(f"{name} fm", one[0], plain[0], TAIL_TOL)
+    assert_close(f"{name} bm", one[1], plain[1], TAIL_TOL)
+    assert_close(f"{name} residual", one[2], plain[2], RESIDUAL_TOL)
+
+    def same(what, ev, st):
+        sync()
+        assert_identical(f"{name}, {what}, against the one-block kernel step by step", [
+            ("atoms", ev.atoms, e1.atoms), ("positions", ev.positions, e1.positions),
+            ("values", ev.values, e1.values), ("fm", st[0], one[0]), ("bm", st[1], one[1]),
+            ("residual", st[2], one[2]),
+        ])
+
+    st = fresh()
+    same("one-block kernel as a chain",
+         cuda_fused_step(*st, d2, gram_p, gate_tail=gate_tail, n_steps=n_steps, **kw), st)
+    for c in (c for c in (1, 2, 4, 8, 16) if state[0].shape[1] % c == 0):
+        st = fresh()
+        ev = [cuda_fused_step_pipelined(*st, d2, gram_p, gate_tail=gate_tail, cluster=c, **kw)
+              for _ in range(n_steps)]
+        same(f"cluster of {c} step by step", stack_events(ev), st)
+        for programmatic in (True, False):
+            st = fresh()
+            ev = cuda_fused_step_pipelined(*st, d2, gram_p, gate_tail=gate_tail, cluster=c,
+                                           n_steps=n_steps, programmatic=programmatic, **kw)
+            same(f"cluster of {c} as a chain (programmatic={programmatic})", ev, st)
+    return max_err(zip(one, plain)), n_clip
 
 
 def device_time_by_kernel(fn, sync):
-    """{kernel name: device ms} over one call of ``fn`` traced with
-    ``torch.profiler``; empty when the trace holds no device time."""
-    import torch
+    """({kernel name: device ms}, busy ms) over one call of ``fn`` traced
+    with ``torch.profiler``; empty and 0 when the trace holds no device time.
+    Busy time is the union of the kernels' intervals in the trace, not the
+    sum of their durations: under programmatic stream serialization a step
+    kernel starts while the step before it runs and waits inside, so its
+    interval overlaps its predecessor's."""
+    import tempfile
+
     from torch.profiler import ProfilerActivity, profile
 
     sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         sync()
-    rows = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
-            rows[e.key] = rows.get(e.key, 0.0) + e.self_device_time_total / 1e3
-    return rows
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    rows, spans = {}, []
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and e.get("dur", 0) > 0:
+            rows[e["name"]] = rows.get(e["name"], 0.0) + e["dur"] / 1e3
+            spans.append((e["ts"], e["ts"] + e["dur"]))
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in sorted(spans):
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    return rows, busy / 1e3
 
 
-def busy_line(what, rows, wall_ms):
-    """One line: the device's busy time in ``rows`` against ``wall_ms`` and
-    the kernels that take most of it."""
+def busy_line(what, traced, wall_ms):
+    """One line: the device's busy time (the union of the traced kernels'
+    intervals) against ``wall_ms`` and the kernels whose intervals sum to
+    most."""
+    rows, busy = traced
     if not rows:
         return f"{what}: device time not measured (the profiler's trace holds no device time)"
-    busy = sum(rows.values())
     top = sorted(rows.items(), key=lambda kv: -kv[1])[:6]
     return (f"{what}: device busy {busy:.3f} ms of {wall_ms:.3f} ms wall measured without the "
-            f"profiler (idle share {max(0.0, 1 - busy / wall_ms):.2f}); by kernel: "
-            + "; ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in top))
+            f"profiler (idle share {max(0.0, 1 - busy / wall_ms):.2f}; the kernels' intervals "
+            f"sum to {sum(rows.values()):.3f} ms, overlapping where a step starts under the one "
+            f"before it); by kernel, interval ms: "
+            + "; ".join(f"{name[:60]} {ms:.3f}" for name, ms in top))
 
 
 def multiband_phase(dev, mb, peaks, sync, records):
@@ -282,6 +345,7 @@ def multiband_phase(dev, mb, peaks, sync, records):
         fused_step_applicable, fused_step_plain,
         sparse_code, sparse_code_fast,
     )
+    from mptpu_torch.sparse.cuda_fused_mp import step_plan
 
     sizes, n, steps, batch = mb["sizes"], mb["n_samples"], mb["steps"], mb["batch"]
     N, A = mb["n_atoms"], mb["atom_size"]
@@ -325,7 +389,7 @@ def multiband_phase(dev, mb, peaks, sync, records):
     for size, ev in enc.items():
         if tuple(ev.atom_indices.shape) != (steps, batch) or not torch.isfinite(ev.values).all():
             fail(f"multiband encode, band {size}: wrong event shape or non-finite values")
-    enc_rows = device_time_by_kernel(lambda: model.encode(x, steps), sync) if on_card else {}
+    enc_rows = device_time_by_kernel(lambda: model.encode(x, steps), sync) if on_card else ({}, 0)
     d_start = {size: band.d for size, band in model.bands.items()}
     learn_ms = [clocked(lambda: model.learn(x, steps))[1] for _ in range(mb["learn_iters"])]
     for size, band in model.bands.items():
@@ -412,9 +476,13 @@ def multiband_phase(dev, mb, peaks, sync, records):
               f"energy ratio {e_fast / e_naive:.6f}")
         del naive
 
-    # the cluster step kernel at the largest and smallest band's shapes
-    reps = 20
-    for size in (fused_bands[-1], fused_bands[0]) if fused_bands else ():
+    # the cluster step kernel at every fused band's shapes: a chain of one
+    # encode's steps, timed with and without programmatic stream
+    # serialization, beside the whole-encode kernel doing the same steps in
+    # one launch; at the largest and smallest band also the checks against
+    # the one-block kernel and the plain version, and the cluster-size sweep
+    rec = records["cuda_fused_step_pipelined"]
+    for size in reversed(fused_bands):
         sig = bands[size]
         geom = fast_geometry(size, A, block)
         kw = geom._asdict()
@@ -423,41 +491,72 @@ def multiband_phase(dev, mb, peaks, sync, records):
         gram_p = F.pad(dictionary_gram(d2), (0, 1))
         fm, bm, res = encode_state(sig, d2, geom)
         bm = F.pad(bm, (0, geom.nb_pad - geom.n_blocks), value=-3e38)
-        err, n_clip = cluster_step_check(f"cluster step, band {size}", (fm, bm, res), d2, gram_p,
-                                         kw, 4, sync)
-        rec = records["cuda_fused_step_pipelined"]
+        state = (fm, bm, res)
+
+        def chain_ms(fn, **opts):
+            """ms of one call of ``fn`` on a fresh copy of the band's state."""
+            st = tuple(t.clone() for t in state)
+            found = []
+            ms = timed(lambda: found.append(fn(*st, d2, gram_p, **opts, **kw)), 1, dev,
+                       warmup=False)
+            return ms, found[0]
+
+        chain_ms(cuda_fused_step_pipelined, n_steps=steps)   # warm-up
+        k4_ms, ev = chain_ms(cuda_fused_step_pipelined, n_steps=steps)
+        k4_serial_ms, _ = chain_ms(cuda_fused_step_pipelined, n_steps=steps, programmatic=False)
+        chain_ms(cuda_fused_encode, n_steps=steps)
+        k2_ms, ev2 = chain_ms(cuda_fused_encode, n_steps=steps)
+        assert_identical(f"band {size}: whole encode vs the cluster step kernel's chain", [
+            ("atoms", ev2.atoms, ev.atoms), ("positions", ev2.positions, ev.positions),
+            ("values", ev2.values, ev.values),
+        ])
+        b_bytes, b_flops = step_traffic(cfg, geom, ev.positions, chain=True)
+        bms, by = bound(b_bytes / steps, b_flops / steps, peaks)
+        line = (f"time band {size} (batch {batch}, map {tuple(fm.shape)}, "
+                f"{int((ev.positions > size - A).sum())} of {steps * batch} events clipped): "
+                f"cuda_fused_step_pipelined {k4_ms / steps:.5f} ms per step in a chain of {steps} "
+                f"({k4_serial_ms / steps:.5f} without programmatic serialization), {k4_ms:.4f} ms "
+                f"per {steps} steps; cuda_fused_encode {k2_ms:.4f} ms for the same {steps} steps "
+                f"in one launch; bound {bms:.5f} ms per step ({by})")
+        if size not in (fused_bands[-1], fused_bands[0]):
+            print(line)
+            continue
+        err, n_clip = cluster_step_check(f"cluster step, band {size}", state, d2, gram_p, kw, 4,
+                                         sync)
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         # the whole-encode kernel takes a band's shapes too (more table
         # columns than a lane holds in registers, rows fewer than stages)
-        looped, whole = ((fm.clone(), bm.clone(), res.clone()) for _ in range(2))
-        e1 = [cuda_fused_step(*looped, d2, gram_p, **kw) for _ in range(4)]
+        looped, whole = (tuple(t.clone() for t in state) for _ in range(2))
+        e1 = stack_events([cuda_fused_step(*looped, d2, gram_p, **kw) for _ in range(4)])
         e2 = cuda_fused_encode(*whole, d2, gram_p, n_steps=4, **kw)
         sync()
         assert_identical(f"whole encode at band {size} vs the one-block step kernel looped", [
-            ("atoms", e2.atoms, torch.stack([e.atoms for e in e1])),
-            ("positions", e2.positions, torch.stack([e.positions for e in e1])),
-            ("values", e2.values, torch.stack([e.values for e in e1])),
+            ("atoms", e2.atoms, e1.atoms), ("positions", e2.positions, e1.positions),
+            ("values", e2.values, e1.values),
             ("fm", whole[0], looped[0]), ("bm", whole[1], looped[1]),
             ("residual", whole[2], looped[2]),
         ])
         del looped, whole
-        pos = []
-        k4_ms = timed(lambda: pos.append(
-            cuda_fused_step_pipelined(fm, bm, res, d2, gram_p, **kw).positions), reps, dev,
-            warmup=False)
-        k1_ms = timed(lambda: cuda_fused_step(fm, bm, res, d2, gram_p, **kw), reps, dev)
+        chain_ms(cuda_fused_step, n_steps=steps)
+        k1_ms, _ = chain_ms(cuda_fused_step, n_steps=steps)
         plain_ms = timed(lambda: fused_step_plain(fm, bm, res, d2, gram_p, **kw), 3, dev)
-        b_bytes, b_flops = step_traffic(cfg, geom, torch.stack(pos), table_reads=True)
-        bms, by = bound(b_bytes / reps, b_flops / reps, peaks)
+        sweep = ""
+        if on_card:
+            shapes = (N, A, block, geom.n_blocks, geom.upd_blocks)
+            by_size = {c: chain_ms(cuda_fused_step_pipelined, n_steps=steps, cluster=c)[0] / steps
+                       for c in (1, 2, 4, 8, 16)}
+            sweep = "; by cluster size (ms per step, clusters resident at once): " + ", ".join(
+                f"{c}: {ms:.5f} ({step_plan(*shapes, c).clusters})" for c, ms in by_size.items())
         if size == fused_bands[-1]:
-            rec.update(ms=k4_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
+            rec.update(ms=k4_ms / steps, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                       library_ms=None, ms_serial=k4_serial_ms / steps)
         else:
-            rec.update(ms_smallest_band=k4_ms, bound_ms_smallest_band=bms)
-        print(f"check + time cuda_fused_step_pipelined at band {size} (batch {batch}, map "
-              f"{tuple(fm.shape)}): bit-identical to the one-block kernel over 4 steps (and so is "
-              f"cuda_fused_encode), max abs err vs plain {err:.3e}; {k4_ms:.4f} ms per launch "
-              f"(cuda_fused_step {k1_ms:.4f} "
-              f"ms, plain {plain_ms:.4f} ms), bound {bms:.5f} ms ({by})")
+            rec.update(ms_smallest_band=k4_ms / steps, bound_ms_smallest_band=bms)
+        print(f"check cuda_fused_step_pipelined at band {size}: clusters of 1 to 16, step by "
+              f"step and as chains, bit-identical to the one-block kernel over 4 steps (and so is "
+              f"cuda_fused_encode), max abs err vs plain {err:.3e}")
+        print(line + f"; cuda_fused_step {k1_ms / steps:.5f} ms per step in a chain, plain "
+              f"{plain_ms:.4f} ms" + sweep)
 
 
 def run(dev, cfg, peaks, sync, mb=MULTIBAND):
@@ -474,7 +573,7 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
         sparse_code, sparse_code_fast,
     )
     from mptpu_torch.sparse.cuda_fused_mp import (
-        cluster_size, encode_cluster_size, encode_plan, max_active_clusters,
+        cluster_size, encode_cluster_size, encode_plan, step_plan,
     )
     from mptpu_torch.device import no_tf32
     from mptpu_torch.probes import probe_launches, probe_plain
@@ -530,15 +629,35 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
     del states
 
     worst = 0.0
-    for items, gate in ((B, True), (min(3, B), False), (1, True)):
+    for items, gate in ((B, True), (B, False), (min(3, B), True), (min(3, B), False), (1, True),
+                        (1, False)):
         err, n_clip = cluster_step_check(
             f"cluster step, {items} items", (fm0[:items], bm0_pad[:items], res0[:items]),
             d2, gram_p, kw, 4, sync, gate_tail=gate,
         )
         worst = max(worst, err)
         print(f"check cuda_fused_step_pipelined vs cuda_fused_step and plain, {items} items x 4 "
-              f"steps (gate_tail={gate}, {n_clip} clipped): bit-identical to the one-block "
-              f"kernel, max abs err vs plain {err:.3e}")
+              f"steps (gate_tail={gate}, {n_clip} clipped): clusters of 1 to 16, step by step "
+              f"and as chains with and without programmatic serialization, and the one-block "
+              f"kernel's chain: bit-identical to the one-block kernel step by step, max abs err "
+              f"vs plain {err:.3e}")
+    # the same at 2,048-tap atoms (a tenth of the amplitude, so that the
+    # rounding of 2,048-term tail sums stays inside the tail tolerance)
+    lgeom = fast_geometry(LONG_ATOMS["n_samples"], LONG_ATOMS["atom_size"], LONG_ATOMS["block"])
+    ld_np, lsig_np = planted_signal(LONG_ATOMS)
+    ld2 = unit_norm(torch.from_numpy(ld_np).to(dev))
+    lfm, lbm, lres = encode_state(torch.from_numpy(0.1 * lsig_np).to(dev), ld2, lgeom)
+    lbm = F.pad(lbm, (0, lgeom.nb_pad - lgeom.n_blocks), value=-3e38)
+    err, n_clip = cluster_step_check(
+        "cluster step, 2,048-tap atoms", (lfm, lbm, lres), ld2,
+        F.pad(dictionary_gram(ld2), (0, 1)), lgeom._asdict(), LONG_ATOMS["n_steps"], sync)
+    if n_clip == 0:
+        fail("the 2,048-tap check has no clipped event")
+    worst = max(worst, err)
+    print(f"check the step kernels at {LONG_ATOMS['n_atoms']} atoms x {LONG_ATOMS['atom_size']} "
+          f"taps, {LONG_ATOMS['batch']} items x {LONG_ATOMS['n_steps']} steps ({n_clip} clipped): "
+          f"as above, max abs err vs plain {err:.3e}")
+    del lfm, lbm, lres
     records["cuda_fused_step_pipelined"] = dict(max_abs_err=worst)
 
     states = [(fm0.clone(), bm0_pad.clone(), res0.clone()) for _ in range(2)]
@@ -715,7 +834,7 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
     sync()
     plain_ms = (time.perf_counter() - t0) * 1e3
     del st
-    b_bytes, b_flops = step_traffic(cfg, geom, ev.positions, table_reads=False)
+    b_bytes, b_flops = step_traffic(cfg, geom, ev.positions, chain=False)
     b_bytes += 4 * 2 * (B * N * geom.nb_pad + B * (n + A))   # table and residuals, once
     bms, by = bound(b_bytes, b_flops, peaks)
     records["cuda_fused_encode"].update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
@@ -753,7 +872,7 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
     sync()
     lane_plain_ms = (time.perf_counter() - t0) * 1e3
     del st, fm_t, bm_t, res_t
-    l_bytes, l_flops = step_traffic(cfg, geom, found[-1].positions, table_reads=False,
+    l_bytes, l_flops = step_traffic(cfg, geom, found[-1].positions, chain=False,
                                     lane_table=True)
     l_bytes += 4 * 2 * (2 * B * N * geom.nb_pad + B * (n + A))   # both tables, residuals, once
     bms, by = bound(l_bytes, l_flops, peaks)
@@ -841,44 +960,54 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
     del windows
 
     gram_b = F.pad(dictionary_gram(d2_b), (0, 1))
-    reps, k1_pos, k4_pos = 20, [], []
-    k4_state = (fm.clone(), bm.clone(), res.clone())   # both kernels time the same steps
-    fm_sweep, bm_sweep, res_sweep = (t.clone() for t in k4_state)
-    k4_ms = timed(
-        lambda: k4_pos.append(
-            cuda_fused_step_pipelined(*k4_state, d2_b, gram_b, **kw).positions),
-        reps, dev, warmup=False,
-    )
-    del k4_state
-    k4_bytes, k4_flops = step_traffic(cfg, geom, torch.stack(k4_pos), table_reads=True)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count if on_card else 0
-    k1_ms = timed(
-        lambda: k1_pos.append(cuda_fused_step(fm, bm, res, d2_b, gram_b, **kw).positions),
-        reps, dev, warmup=False,
-    )
-    k1_pos = torch.stack(k1_pos)
+    reps = 20   # every chain below runs the same first steps of the bench encode
+    step_state = (fm, bm, res)
+
+    def chain_ms(fn, **opts):
+        """(ms per step, events) of ``reps`` steps by one call of ``fn`` on a
+        fresh copy of the state."""
+        st = tuple(t.clone() for t in step_state)
+        found = []
+        ms = timed(lambda: found.append(fn(*st, d2_b, gram_b, **opts, **kw)), 1, dev, warmup=False)
+        return ms / reps, found[0]
+
+    def singles(*st):
+        return stack_events([cuda_fused_step_pipelined(*st, d2_b, gram_b, **kw)
+                             for _ in range(reps)])
+
+    chain_ms(cuda_fused_step_pipelined, n_steps=reps)   # warm-up
+    k4_ms, k4_ev = chain_ms(cuda_fused_step_pipelined, n_steps=reps)
+    k4_serial_ms, _ = chain_ms(cuda_fused_step_pipelined, n_steps=reps, programmatic=False)
+    k4_single_ms, _ = chain_ms(lambda *a, **k: singles(*a[:3]))
+    chain_ms(cuda_fused_step, n_steps=reps)
+    k1_ms, k1_ev = chain_ms(cuda_fused_step, n_steps=reps)
+    k1_serial_ms, _ = chain_ms(cuda_fused_step, n_steps=reps, programmatic=False)
+    assert_identical("the timed chains of the two step kernels", [
+        ("atoms", k4_ev.atoms, k1_ev.atoms), ("positions", k4_ev.positions, k1_ev.positions),
+        ("values", k4_ev.values, k1_ev.values),
+    ])
     k1_plain = timed(lambda: fused_step_plain(fm, bm, res, d2_b, gram_b, **kw), 5, dev)
-    k1_bytes, k1_flops = step_traffic(cfg, geom, k1_pos, table_reads=True)
-    bms, by = bound(k1_bytes / reps, k1_flops / reps, peaks)
+    b_bytes, b_flops = step_traffic(cfg, geom, k1_ev.positions, chain=True)
+    bms, by = bound(b_bytes / reps, b_flops / reps, peaks)
     records["cuda_fused_step"].update(ms=k1_ms, plain_ms=k1_plain, bound_ms=bms, bound_by=by,
-                                      library_ms=None)
-    bms, _ = bound(k4_bytes / reps, k4_flops / reps, peaks)
-    records["cuda_fused_step_pipelined"].update(ms_bench=k4_ms, bound_ms_bench=bms)
-    print(f"time cuda_fused_step_pipelined at the bench shapes, the same {reps} steps as "
-          f"cuda_fused_step ({int((torch.stack(k4_pos) > n - A).sum())} clipped events): "
-          f"{k4_ms:.4f} ms per launch (cuda_fused_step {k1_ms:.4f} ms), bound {bms:.4f} ms"
-          + (f"; the card holds {max_active_clusters(A, cluster_size(B, N, sms))} clusters of "
-             f"{cluster_size(B, N, sms)} blocks at once for {B} items" if on_card else ""))
+                                      library_ms=None, ms_serial=k1_serial_ms)
+    records["cuda_fused_step_pipelined"].update(ms_bench=k4_ms, bound_ms_bench=bms,
+                                                ms_bench_serial=k4_serial_ms)
+    print(f"time the step kernels at the bench shapes, chains of the same {reps} steps "
+          f"({int((k1_ev.positions > n - A).sum())} clipped events), ms per step: "
+          f"cuda_fused_step_pipelined {k4_ms:.4f} ({k4_serial_ms:.4f} without programmatic "
+          f"serialization, {k4_single_ms:.4f} launched one by one), cuda_fused_step {k1_ms:.4f} "
+          f"({k1_serial_ms:.4f} without), bound {bms:.4f} ms"
+          + (f"; the rule gives {B} items clusters of "
+             f"{cluster_size(B, N, lambda c: step_plan(*shapes, c).clusters)}"
+             if on_card else ""))
     if on_card:
-        sweep = {}
-        for c in (1, 2, 4, 8):   # the same steps again, at every cluster size
-            st = (fm_sweep.clone(), bm_sweep.clone(), res_sweep.clone())
-            sweep[c] = timed(lambda: cuda_fused_step_pipelined(*st, d2_b, gram_b, cluster=c, **kw),
-                             reps, dev, warmup=False)
-            del st
+        sweep = {c: chain_ms(cuda_fused_step_pipelined, n_steps=reps, cluster=c)[0]
+                 for c in (1, 2, 4, 8, 16)}   # the same steps again, at every cluster size
         print("time cuda_fused_step_pipelined at the bench shapes by cluster size "
-              f"(ms per launch, clusters the card holds at once): "
-              + ", ".join(f"{c}: {sweep[c]:.4f} ({max_active_clusters(A, c)})" for c in sweep))
+              f"(ms per step, clusters the card holds at once, ring stages): "
+              + ", ".join(f"{c}: {sweep[c]:.4f} ({step_plan(*shapes, c).clusters}, "
+                          f"{step_plan(*shapes, c).stages})" for c in sweep))
         k2_sweep = {}
         for c in sizes:   # the bench encode again, at every cluster size
             st = fresh_encode_state()

@@ -4,153 +4,71 @@
 // mp_fused_step_pipelined replaces mptpu/sparse/pallas_fused_mp.py
 // pallas_fused_step_pipelined (:727, kernel body _pipelined_step_kernel
 // :381-709). Its contract is mp_fused_step's, bit for bit: the same
-// events, map, block-max table and residual after the launch.
+// events, map, block-max table and residual after every launch.
 //
 // The TPU kernel pipelines item g+1's argmax, refine and fetches under
 // item g's update because a TPU grid runs its steps in order on one core.
 // On this card items already run on different SMs, so that overlap would
 // add nothing; what is serial here is one item's step on one SM, which at
-// a small batch leaves the card idle (4 of 132 SMs at the multiband batch).
-// So the step of one item is shared by the C blocks of a cluster, rank r
-// owning atom rows [r * N / C, (r + 1) * N / C) of the map, the table, the
-// gram row and the tail:
+// a small batch leaves the card idle (4 of 132 SMs at the multiband batch),
+// and one step after another on the stream. So the step of one item is
+// shared by the C blocks of a cluster, rank r owning atom rows
+// [r * N / C, (r + 1) * N / C), and a call enqueues a chain of steps whose
+// launches overlap: the step body of mp_window.cuh (enc::encode_body, which
+// says what a step does and how) with kStep and kCluster.
 //
-//   select   each rank takes the first maximum of its table rows; the C
-//            (value, flat index) pairs meet through distributed shared
-//            memory and every rank keeps the first flat index among equal
-//            maxima; every rank reads the winner's block for the refine;
-//   surgery  rank 0 updates the residual row in global memory; every rank
-//            repeats it on a shared-memory copy of the last 2A samples
-//            (taken before the first cluster barrier), which is all the
-//            tail product reads, so no rank waits for rank 0's write;
-//   update   tail product, window subtract, tail splice and block maxima
-//            on the rank's own rows (mp::update_rows), each tail sum in
-//            the same k-ascending FMA order as the one-block kernel.
-//
-// Two cluster barriers: one before the candidates are read, one after the
-// refine (the winner's map row is rewritten by its owner in the update,
-// and a block may not exit while another reads its shared memory).
-//
-// What bounds it: bytes, as mp_fused_step (one gram row, the update window
-// both ways, the table); C SMs now stream them together.
-#include <cooperative_groups.h>
+// What bounds it: at the bench shapes bytes, as mp_fused_step (one gram row,
+// the update window both ways); at a multiband band's shapes (a 3-block
+// window of 128-tap atoms, 8 MB a step for 4 items) latency: the bytes bound
+// lies below the cost of one launch. Against that: one cluster barrier on
+// the step's path (every rank refines its own candidate and hands it to its
+// peers before the barrier, so nobody reads a peer's shared memory after
+// it), up to 16 blocks per item (a rank's rows cost instructions, not
+// bytes: some 600 a row), all of a rank's rows in flight at once as bulk
+// copies, the rows' maxima kept in the chain's scratch instead of a table
+// scan per launch, and programmatic stream serialization, under which a
+// launch's latency and preamble hide under the step before it.
+#include "mp_window.cuh"
 
-#include "mp_step.cuh"
-
-namespace cg = cooperative_groups;
 using mp::Geometry;
-using mp::kTailAtoms;
-using mp::kThreads;
 
-struct Candidate {
-  float v;
-  int i;
-};
-
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(enc::kThreads, 1)
 fused_step_pipelined_kernel(float* fm, float* bm, float* residual, const float* __restrict__ d2,
                             const float* __restrict__ gram_p, float* tail, int* atoms,
-                            int* positions, float* values, Geometry g) {
-  extern __shared__ float4 smem4[];
-  __shared__ mp::Scratch s;
-  __shared__ Candidate cand;
-  float* ds = reinterpret_cast<float*>(smem4);
-  float* seg = ds + kTailAtoms * g.A;   // residual samples [n_samples - A, n_samples + A)
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int b = blockIdx.y, tid = threadIdx.x;
-  const int nrows = g.N / C, row0 = rank * nrows;
-  float* fm_b = fm + (size_t)b * g.N * g.W;
-  float* bm_b = bm + (size_t)b * g.N * g.nbt;
-  float* res_b = residual + (size_t)b * g.L;
-  float* tail_b = tail + (size_t)b * g.N * g.A;
-
-  // select: own rows, then the first maximum among the ranks' candidates
-  for (int j = tid; j < 2 * g.A; j += kThreads) seg[j] = res_b[g.n_samples - g.A + j];
-  float v;
-  int idx;
-  mp::table_first_max(bm_b, row0, nrows, g, s, v, idx);
-  if (tid == 0) {
-    cand.v = v;
-    cand.i = idx;
-  }
-  cluster.sync();
-  v = -CUDART_INF_F;
-  idx = INT_MAX;
-  for (int r = 0; r < C; ++r) {
-    const Candidate* c = cluster.map_shared_rank(&cand, r);
-    mp::keep_first_max(v, idx, c->v, c->i);
-  }
-  const int atom = idx / g.n_blocks;
-  float value;
-  int position;
-  mp::refine_block(fm_b, atom, idx - atom * g.n_blocks, g, s, value, position);
-  cluster.sync();
-
-  // surgery: the row in global memory once, the tail segment in every rank
-  const float* drow = d2 + (size_t)atom * g.A;
-  if (rank == 0) mp::residual_surgery(res_b, drow, position, value, g);
-  const bool clipped = mp::event_clipped(position, g);
-  if (clipped) {
-    mp::segment_surgery(seg, drow, position, value, g);
-    mp::tail_product(seg, d2 + (size_t)row0 * g.A, tail_b + (size_t)row0 * g.A, ds, nrows, g.A);
-  }
-  mp::update_rows<false>(fm_b, bm_b, nullptr, tail_b, gram_p, atom, position, value, clipped,
-                         row0, nrows, g);
-  if (rank == 0 && tid == 0) {
-    atoms[b] = atom;
-    positions[b] = position;
-    values[b] = value;
-  }
+                            int* positions, float* values, Geometry g, int stages, float* rows,
+                            int have_rows) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  enc::encode_body<true, true, enc::kStepStages, enc::kStepRowRegs>(
+      fm, bm, residual, d2, gram_p, tail, atoms, positions, values, g, 1, stages, 0, rows,
+      have_rows, smem_raw);
 }
 
-static cudaError_t cluster_config(cudaLaunchConfig_t& config, cudaLaunchAttribute* attr, int B,
-                                  int A, int cluster_size, void* stream) {
-  const int smem = (kTailAtoms * A + 2 * A) * (int)sizeof(float);
-  config = cudaLaunchConfig_t{};
-  config.gridDim = dim3(cluster_size, B, 1);
-  config.blockDim = dim3(kThreads, 1, 1);
-  config.dynamicSmemBytes = smem;
-  config.stream = (cudaStream_t)stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster_size;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  return cudaFuncSetAttribute(fused_step_pipelined_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
+// what CUDA has been told about the kernel
+static enc::Setups setup;
 
+// n_steps greedy steps, one launch each, enqueued on the stream in one call:
+// step s writes its events into row s of (n_steps, B) outputs. rows is
+// scratch of 2 x B x N words, tail of B x N x A floats.
 extern "C" int mp_fused_step_pipelined(void* fm, void* bm, void* residual, void* d2,
-                                       void* gram_p, void* tail, void* atoms, void* positions,
-                                       void* values, int B, int N, int A, int W, int n_samples,
-                                       int block, int pad, int n_blocks, int nbt,
+                                       void* gram_p, void* tail, void* rows, void* atoms,
+                                       void* positions, void* values, int B, int N, int A, int W,
+                                       int n_samples, int block, int pad, int n_blocks, int nbt,
                                        int upd_blocks, int tail_start, int gate_tail,
-                                       int cluster_size, void* stream) {
-  if (cluster_size < 1 || cluster_size > 8 || N % cluster_size) return (int)cudaErrorInvalidValue;
+                                       int n_steps, int programmatic, int cluster_size,
+                                       void* stream) {
   const Geometry g = mp::make_geometry(N, A, W, n_samples, block, pad, n_blocks, nbt, upd_blocks,
                                        tail_start, gate_tail);
-  cudaLaunchConfig_t config;
-  cudaLaunchAttribute attr[1];
-  cudaError_t err = cluster_config(config, attr, B, A, cluster_size, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&config, fused_step_pipelined_kernel, (float*)fm, (float*)bm,
-                           (float*)residual, (const float*)d2, (const float*)gram_p,
-                           (float*)tail, (int*)atoms, (int*)positions, (float*)values, g);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return (int)enc::launch_step_chain(fused_step_pipelined_kernel, setup, true, fm, bm,
+                                     residual, d2, gram_p, tail, rows, atoms, positions, values,
+                                     B, g, cluster_size, n_steps, programmatic, stream);
 }
 
-// How many clusters of cluster_size blocks the card can hold at once for
-// this kernel at A taps (a launch of more clusters runs in waves), or minus
-// the CUDA error code.
-extern "C" int mp_fused_step_pipelined_max_clusters(int A, int cluster_size) {
-  cudaLaunchConfig_t config;
-  cudaLaunchAttribute attr[1];
-  cudaError_t err = cluster_config(config, attr, 1, A, cluster_size, nullptr);
-  if (err != cudaSuccess) return -(int)err;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, fused_step_pipelined_kernel, &config);
-  return err == cudaSuccess ? clusters : -(int)err;
+// The plan of mp_fused_step_pipelined at these shapes and cluster size,
+// without a launch: out = {clusters of that size the card holds at once,
+// ring stages, dynamic shared-memory bytes}, all 0 where the shapes admit no
+// plan.
+extern "C" int mp_fused_step_pipelined_plan(int N, int A, int block, int n_blocks,
+                                            int upd_blocks, int cluster_size, int* out) {
+  return enc::step_plan(fused_step_pipelined_kernel, setup, N, A, block, n_blocks,
+                        upd_blocks, cluster_size, out);
 }

@@ -1,15 +1,13 @@
-// One greedy fast-MP step for one batch item, in pieces that one thread
-// block runs whole (step_item, step_item_lane) or that the blocks of a
-// cluster share by atom rows (mp_pipelined.cu).
+// One greedy fast-MP step for one batch item by one 1,024-thread block,
+// selecting from the block-max table and a lane table (step_item_lane):
+// the step body of the lane-table encode (mp_lane.cu:
+// mp_fused_encode_lane). Geometry, keep_first_max and event_clipped are
+// shared with the other fused kernels (mp_window.cuh).
 //
-// Shared by the per-step kernels (mp_fused.cu: mp_fused_step,
-// mp_pipelined.cu: mp_fused_step_pipelined) and the whole-encode kernels
-// (mp_fused.cu: mp_fused_encode, mp_lane.cu: mp_fused_encode_lane). It
-// computes what
-// the Pallas step body computes (mptpu/sparse/pallas_fused_mp.py
-// _step_kernel, :69-272), indexing directly where the TPU kernel rolls
-// lanes, builds a Hankel matrix by a roll ladder, places block maxima by a
-// one-hot matmul and refines from an 8-row slab.
+// It computes what the Pallas step body computes
+// (mptpu/sparse/pallas_fused_mp.py _step_kernel, :69-272), indexing directly
+// where the TPU kernel rolls lanes, builds a Hankel matrix by a roll ladder,
+// places block maxima by a one-hot matmul and refines from an 8-row slab.
 //
 // Numerics. The window subtract and the residual surgery are written as
 // __fsub_rn(a, __fmul_rn(v, g)): nvcc would otherwise contract a - v*g
@@ -19,8 +17,9 @@
 // with FMA, in another order than cuBLAS/cuDNN) differ from it, by the
 // rounding of a 512-term float32 sum.
 //
-// Ties. Both the table argmax and the refine keep the first (smallest)
-// flat index among equal maxima, as torch.argmax and jnp.argmax do.
+// Ties. The table argmax keeps the first (smallest) flat index among equal
+// maxima, as torch.argmax and jnp.argmax do, and the lane table holds the
+// first lane of each block's maximum.
 #pragma once
 
 #include <climits>
@@ -161,25 +160,6 @@ __device__ __forceinline__ void table_first_max(const float* bm, int row0, int n
   block_first_max(v, idx, s);
 }
 
-// (value, position) of the first maximum inside block blk of map row atom.
-__device__ __forceinline__ void refine_block(const float* fm, int atom, int blk,
-                                             const Geometry g, Scratch& s, float& value,
-                                             int& position) {
-  const float* seg = fm + (size_t)atom * g.W + (size_t)blk * g.block;
-  float v = -CUDART_INF_F;
-  int idx = INT_MAX;
-  for (int l = threadIdx.x; l < g.block; l += kThreads) {
-    const float x = seg[l];
-    if (x > v) {
-      v = x;
-      idx = l;
-    }
-  }
-  block_first_max(v, idx, s);
-  value = v;
-  position = blk * g.block + idx - g.pad;
-}
-
 // res[position : position + A] -= value * drow on a whole residual row
 // (length L), then zero everything past the signal end. Ends with
 // __syncthreads().
@@ -193,29 +173,13 @@ __device__ __forceinline__ void residual_surgery(float* res, const float* __rest
   __syncthreads();
 }
 
-// The same surgery on a copy seg (2A floats) of the row's samples
-// [n_samples - A, n_samples + A): the same operations on the same values,
-// so seg ends equal to that part of the row. Ends with __syncthreads().
-__device__ __forceinline__ void segment_surgery(float* seg, const float* __restrict__ drow,
-                                                int position, float value, const Geometry g) {
-  const int base = g.n_samples - g.A;
-  for (int k = threadIdx.x; k < g.A; k += kThreads) {
-    const int j = position + k - base;
-    if (j >= 0) seg[j] = __fsub_rn(seg[j], __fmul_rn(value, drow[k]));
-  }
-  __syncthreads();
-  for (int j = g.A + threadIdx.x; j < 2 * g.A; j += kThreads) seg[j] = 0.f;
-  __syncthreads();
-}
-
 // One pass over the window blocks (and, when clipped, the tail blocks) of
 // map rows [row0, row0 + nrows): subtract value * gram_p[atom] on
 // [ustart, ustart + 2A), let the exact tail win over
 // [tail_start, tail_start + A), and take each block's maximum from the
 // final values. One warp per (atom row, block). tail is the item's whole
-// (N, A) scratch. With kLanes the first lane of each block's maximum goes
-// into lanes (same layout as bm) beside the maximum. No barrier inside.
-template <bool kLanes>
+// (N, A) scratch. The first lane of each block's maximum goes into lanes
+// (same layout as bm) beside the maximum. No barrier inside.
 __device__ __forceinline__ void update_rows(float* fm, float* bm, int* lanes, const float* tail,
                                             const float* __restrict__ gram_p, int atom,
                                             int position, float value, bool clipped, int row0,
@@ -252,26 +216,18 @@ __device__ __forceinline__ void update_rows(float* fm, float* bm, int* lanes, co
           val = f[x];
         }
       }
-      if (kLanes) {
-        if (val > m) {   // l ascends: the first lane of the maximum stays
-          m = val;
-          ml = l;
-        }
-      } else {
-        m = fmaxf(m, val);
+      if (val > m) {   // l ascends: the first lane of the maximum stays
+        m = val;
+        ml = l;
       }
     }
     for (int o = 16; o > 0; o >>= 1) {
-      if (kLanes) {
-        keep_first_max(m, ml, __shfl_xor_sync(0xffffffffu, m, o),
-                       __shfl_xor_sync(0xffffffffu, ml, o));
-      } else {
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      }
+      keep_first_max(m, ml, __shfl_xor_sync(0xffffffffu, m, o),
+                     __shfl_xor_sync(0xffffffffu, ml, o));
     }
     if (lane == 0) {
       bm[(size_t)row * g.nbt + b_] = m;
-      if (kLanes) lanes[(size_t)row * g.nbt + b_] = ml;
+      lanes[(size_t)row * g.nbt + b_] = ml;
     }
   }
 }
@@ -284,30 +240,12 @@ __device__ __forceinline__ bool event_clipped(int position, const Geometry g) {
 }
 
 // One greedy step of one item, in place on its map row set fm (N, W), its
-// block-max table bm (N, nbt) and its residual row res (L); res may live
-// in global or shared memory. tail (N, A) is global scratch, ds shared
-// scratch of kTailAtoms * A floats. Ends with __syncthreads().
-static __device__ Event step_item(float* fm, float* bm, float* res, const float* __restrict__ d2,
-                           const float* __restrict__ gram_p, float* tail, float* ds,
-                           const Geometry g, Scratch& s) {
-  // 1) first maximum of the block-max table, 2) refine inside its block
-  float value;
-  int idx, position;
-  table_first_max(bm, 0, g.N, g, s, value, idx);
-  const int atom = idx / g.n_blocks;
-  refine_block(fm, atom, idx - atom * g.n_blocks, g, s, value, position);
-  // 3) residual surgery, 4) exact boundary tail, 5) window pass
-  residual_surgery(res, d2 + (size_t)atom * g.A, position, value, g);
-  const bool clipped = event_clipped(position, g);
-  if (clipped) tail_product(res + (g.n_samples - g.A), d2, tail, ds, g.N, g.A);
-  update_rows<false>(fm, bm, nullptr, tail, gram_p, atom, position, value, clipped, 0, g.N, g);
-  __syncthreads();
-  return Event{atom, position, value};
-}
-
-// The same step with the winner's position read from the lane table: the
+// tables bm and lanes (N, nbt) and its residual row res (L, in global or
+// shared memory), with the winner's position read from the lane table: the
 // table entry is the winner's value and lanes[atom, blk] its lane, so the
 // map is not read to select. The window pass keeps both tables current.
+// tail (N, A) is global scratch, ds shared scratch of kTailAtoms * A floats.
+// Ends with __syncthreads().
 static __device__ Event step_item_lane(float* fm, float* bm, int* lanes, float* res,
                                 const float* __restrict__ d2, const float* __restrict__ gram_p,
                                 float* tail, float* ds, const Geometry g, Scratch& s) {
@@ -319,7 +257,7 @@ static __device__ Event step_item_lane(float* fm, float* bm, int* lanes, float* 
   residual_surgery(res, d2 + (size_t)atom * g.A, position, value, g);
   const bool clipped = event_clipped(position, g);
   if (clipped) tail_product(res + (g.n_samples - g.A), d2, tail, ds, g.N, g.A);
-  update_rows<true>(fm, bm, lanes, tail, gram_p, atom, position, value, clipped, 0, g.N, g);
+  update_rows(fm, bm, lanes, tail, gram_p, atom, position, value, clipped, 0, g.N, g);
   __syncthreads();
   return Event{atom, position, value};
 }

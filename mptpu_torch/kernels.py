@@ -8,8 +8,9 @@ and the flags, so a changed source rebuilds. The shared library is
 loaded with ``ctypes``. Importing this module needs no ``nvcc``: nothing
 is built until a CUDA tensor reaches a kernel wrapper.
 
-Every wrapper adds one to its entry in ``LAUNCHES`` where it launches its
-kernel, and nowhere else, so a run can show which kernels it went
+Every wrapper adds one to its entry in ``LAUNCHES`` for each launch of its
+kernel (a chain of ``n_steps`` step launches enqueued by one C call adds
+``n_steps``), and nowhere else, so a run can show which kernels it went
 through.
 """
 
@@ -35,12 +36,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C function name -> argument types (pointers and the stream are void*)
 _SIGNATURES = {
-    "mp_fused_step": [_P] * 9 + [_I] * 12 + [_P],
+    "mp_fused_step": [_P] * 10 + [_I] * 14 + [_P],
     "mp_fused_encode": [_P] * 9 + [_I] * 14 + [_P],
     "mp_fused_encode_plan": [_I] * 6 + [_P],
     "mp_boundary_update": [_P] * 4 + [_I] * 6 + [_P],
-    "mp_fused_step_pipelined": [_P] * 9 + [_I] * 13 + [_P],
-    "mp_fused_step_pipelined_max_clusters": [_I, _I],
+    "mp_fused_step_pipelined": [_P] * 10 + [_I] * 15 + [_P],
+    "mp_fused_step_pipelined_plan": [_I] * 6 + [_P],
     "mp_fused_encode_lane": [_P] * 10 + [_I] * 13 + [_P],
     "probe_grid": [_P, _I, _I, _P],
     "probe_loop": [_P, _I, _I, _P],
@@ -139,14 +140,15 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, counter: str, *args) -> None:
-    """Call C launcher ``name`` on the current stream, count the launch
-    under ``counter`` and raise if CUDA reports an error."""
+def launch(name: str, counter: str, *args, count: int = 1) -> None:
+    """Call C launcher ``name`` on the current stream, add the ``count``
+    kernel launches it enqueues to ``counter`` and raise if CUDA reports an
+    error."""
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(library(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
-    LAUNCHES[counter] += 1
+    LAUNCHES[counter] += count
 
 
 def check(name: str, t: torch.Tensor, shape: tuple, dtype=torch.float32, device=None) -> None:

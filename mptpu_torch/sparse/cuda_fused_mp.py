@@ -16,7 +16,9 @@ lane-padded) and the padded residual rows (B, n_samples + A):
 
 ``cuda_fused_step`` launches that once per step with one thread block
 per item; ``cuda_fused_step_pipelined`` is the same function with each
-item's step shared by a thread-block cluster; ``cuda_fused_encode`` runs
+item's step shared by a thread-block cluster; both take ``n_steps`` and
+then enqueue that many launches in one call, events stacked (n_steps, B);
+``cuda_fused_encode`` runs
 all ``n_steps`` in one launch, one cluster per item looping over the steps;
 ``cuda_fused_encode_lane`` does so in one block per item with a table of
 each block's first-maximum lane, so that selecting reads no map
@@ -218,29 +220,59 @@ def fused_encode_lane_plain(
     return StepEvents(*(torch.stack(x) for x in zip(*steps)))
 
 
-def cluster_size(batch: int, n_atoms: int, sm_count: int) -> int:
-    """Thread blocks per item for ``cuda_fused_step_pipelined``: the largest
-    of 8, 4, 2, 1 that divides ``n_atoms`` and keeps ``batch`` clusters
-    within the card's ``sm_count`` SMs (1 when even that does not fit)."""
-    for c in (8, 4, 2):
-        if n_atoms % c == 0 and batch * c <= sm_count:
-            return c
-    return 1
+# blocks per item that the cluster step kernel takes (csrc/mp_window.cuh:
+# kMaxStepCluster; above 8 the clusters are "non-portable" ones, which an
+# H100 holds)
+STEP_CLUSTERS = (16, 8, 4, 2, 1)
+
+
+def cluster_size(batch: int, n_atoms: int, resident) -> int:
+    """Thread blocks per item for ``cuda_fused_step_pipelined``: the one of
+    16, 8, 4, 2, 1 (divisors of ``n_atoms`` only) with the least
+    ``waves * (1 / size + 1 / 16)``, the larger among equals, where
+    ``waves`` is how many rounds ``batch`` clusters need when the card holds
+    ``resident(size)`` of them at once. A launch is one step; a wave costs a
+    cluster its share of an item's step, 1 / size of one block's time, and a
+    part that does not shrink (select, cluster barrier, the wave's start).
+    The 1/16 for that part is no model: it is fitted to the sweeps of the
+    cluster sizes on an H100 at two batches only, 4 items (a multiband band)
+    and 32 (the bench shapes), and at 32 items it leaves 2 and 8 level, which
+    the tie-break settles as the sweep does. So 4 items take 16 blocks each,
+    and 32 items 8 blocks each in three waves of 15 clusters rather than 4 in
+    two waves of 30 or 16 in five waves of 7."""
+    best, best_cost = 1, None
+    for c in STEP_CLUSTERS:
+        if n_atoms % c:
+            continue
+        held = resident(c)
+        if held < 1:
+            continue
+        cost = -(-batch // held) * (1 / c + 1 / 16)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = c, cost
+    return best
+
+
+class StepPlan(NamedTuple):
+    """How ``cuda_fused_step_pipelined``'s kernel runs at a cluster size."""
+
+    clusters: int    # resident at once (0: the shapes admit no such plan)
+    stages: int      # depth of the ring of (window, gram row) stages
+    smem_bytes: int
 
 
 @lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-def max_active_clusters(atom_size: int, clusters_of: int) -> int:
-    """How many clusters of ``clusters_of`` blocks of the cluster step
-    kernel the current card holds at once (CUDA's occupancy query, no
-    launch); a launch of more items than that runs in waves."""
-    n = kernels.library().mp_fused_step_pipelined_max_clusters(atom_size, clusters_of)
-    if n < 0:
-        raise RuntimeError(f"cudaOccupancyMaxActiveClusters: CUDA error {-n}")
-    return n
+def step_plan(n_atoms: int, atom_size: int, block: int, n_blocks: int, upd_blocks: int,
+              cluster: int) -> StepPlan:
+    """The cluster step kernel's plan on the current card (CUDA's occupancy
+    query, no launch) with ``cluster`` blocks per item; a launch of more
+    items than ``clusters`` runs in waves."""
+    out = (ctypes.c_int * 3)()
+    err = kernels.library().mp_fused_step_pipelined_plan(
+        n_atoms, atom_size, block, n_blocks, upd_blocks, cluster, out)
+    if err != 0:
+        raise RuntimeError(f"mp_fused_step_pipelined_plan: CUDA error {err}")
+    return StepPlan(out[0], out[1], out[2])
 
 
 class EncodePlan(NamedTuple):
@@ -279,7 +311,7 @@ def encode_cluster_size(batch: int, n_atoms: int, resident) -> int:
 
 
 def check_bulk_copy_alignment(fm, gram_p, atom_size: int, block: int) -> None:
-    """Raise unless the whole-encode kernel's bulk copies are legal: an
+    """Raise unless the fused kernels' bulk copies are legal: an
     update window of ``fm`` and a row of ``gram_p`` must start on 16 bytes
     and be a multiple of 16 bytes long."""
     if block % 4 or atom_size % 4:
@@ -310,7 +342,11 @@ def _check_step_args(fm, bm, residual, d2, gram_p, n_samples, atom_size, block, 
 
 
 def _launch_step(name, counter, fm, bm, residual, d2, gram_p, n_out, gate_tail, geometry,
-                 *extra, lanes=None) -> StepEvents:
+                 *extra, lanes=None, chain: int = 0) -> StepEvents:
+    """One C call: check the arguments, allocate the scratch and the events
+    (``n_out``), launch. ``chain``: the call enqueues that many launches of a
+    per-step kernel, which share the scratch and one more of 2 x B x N words
+    for the rows' maxima; 0: one launch of another kernel."""
     B, N, W = _check_step_args(fm, bm, residual, d2, gram_p, **geometry)
     A = geometry["atom_size"]
     dev = fm.device
@@ -318,34 +354,60 @@ def _launch_step(name, counter, fm, bm, residual, d2, gram_p, n_out, gate_tail, 
     if lanes is not None:
         kernels.check("lanes", lanes, tuple(bm.shape), dtype=torch.int32, device=dev)
         tables = (bm, lanes)
-    tail = torch.empty((B, N, A), dtype=torch.float32, device=dev)
+    scratch = [torch.empty((B, N, A), dtype=torch.float32, device=dev)]
+    if chain:
+        check_bulk_copy_alignment(fm, gram_p, A, geometry["block"])
+        scratch.append(torch.empty((2, B, N), dtype=torch.float32, device=dev))
     atoms = torch.empty(n_out, dtype=torch.int32, device=dev)
     positions = torch.empty(n_out, dtype=torch.int32, device=dev)
     values = torch.empty(n_out, dtype=torch.float32, device=dev)
     kernels.launch(
         name, counter,
-        *(t.data_ptr() for t in (fm, *tables, residual, d2, gram_p, tail, atoms, positions,
+        *(t.data_ptr() for t in (fm, *tables, residual, d2, gram_p, *scratch, atoms, positions,
                                  values)),
         B, N, A, W, geometry["n_samples"], geometry["block"], geometry["pad"],
         geometry["n_blocks"], bm.shape[-1], geometry["upd_blocks"], geometry["tail_start"],
         int(gate_tail), *extra,
+        count=chain or 1,
     )
     return StepEvents(atoms, positions, values)
 
 
+def _steps_plain(fm, bm, residual, d2, gram_p, n_steps, gate_tail, geometry) -> StepEvents:
+    if n_steps is None:
+        return fused_step_plain(fm, bm, residual, d2, gram_p, gate_tail=gate_tail, **geometry)
+    return fused_encode_plain(fm, bm, residual, d2, gram_p, n_steps=n_steps, gate_tail=gate_tail,
+                              **geometry)
+
+
+def _check_n_steps(n_steps) -> None:
+    if n_steps is not None and n_steps < 1:
+        raise ValueError("n_steps must be at least 1")
+
+
 def cuda_fused_step(
-    fm, bm, residual, d2, gram_p, *, gate_tail: bool = True, **geometry
+    fm, bm, residual, d2, gram_p, *, gate_tail: bool = True, n_steps: int | None = None,
+    programmatic: bool = True, **geometry
 ) -> StepEvents:
     """One greedy step for every item, in place on ``fm``, ``bm`` and
     ``residual``. ``geometry``: n_samples, atom_size, block, pad, n_blocks,
     upd_blocks, tail_start (``fast_mp.fast_geometry``). Events are (B,).
+    With ``n_steps``: that many steps one after another, events
+    (n_steps, B); the state after them is the state after as many single
+    calls, bit for bit.
 
-    CPU tensors take ``fused_step_plain``; CUDA tensors launch
-    ``csrc/mp_fused.cu:mp_fused_step`` (one thread block per item)."""
+    CPU tensors take ``fused_step_plain`` (looped); CUDA tensors launch
+    ``csrc/mp_fused.cu:mp_fused_step`` (one thread block per item), the
+    ``n_steps`` launches enqueued by one C call and, unless ``programmatic``
+    is off, each allowed to start under the one before it (programmatic
+    stream serialization; the kernel waits before it reads the state)."""
+    _check_n_steps(n_steps)
     if fm.device.type == "cpu":
-        return fused_step_plain(fm, bm, residual, d2, gram_p, gate_tail=gate_tail, **geometry)
+        return _steps_plain(fm, bm, residual, d2, gram_p, n_steps, gate_tail, geometry)
+    B = fm.shape[0]
     return _launch_step("mp_fused_step", "cuda_fused_step", fm, bm, residual, d2, gram_p,
-                        (fm.shape[0],), gate_tail, geometry)
+                        (B,) if n_steps is None else (n_steps, B), gate_tail, geometry,
+                        n_steps or 1, int(programmatic), chain=n_steps or 1)
 
 
 def cuda_fused_encode(
@@ -382,26 +444,33 @@ def cuda_fused_encode(
 
 def cuda_fused_step_pipelined(
     fm, bm, residual, d2, gram_p, *, gate_tail: bool = True, cluster: int | None = None,
-    **geometry
+    n_steps: int | None = None, programmatic: bool = True, **geometry
 ) -> StepEvents:
     """``cuda_fused_step``'s function, bit for bit, with each item's step
     shared by a thread-block cluster so that a small batch still fills the
     card (counterpart of ``pallas_fused_step_pipelined``, which overlaps
     items on the TPU's sequential grid for the same reason).
 
-    CPU tensors take ``fused_step_plain``; CUDA tensors launch
+    ``n_steps`` and ``programmatic`` as in ``cuda_fused_step``.
+
+    CPU tensors take ``fused_step_plain`` (looped); CUDA tensors launch
     ``csrc/mp_pipelined.cu:mp_fused_step_pipelined`` with ``cluster`` blocks
-    per item (1, 2, 4 or 8 and a divisor of N; by default
-    ``cluster_size(B, N, SMs of the card)``), each owning ``N / cluster``
-    atom rows. The result does not depend on ``cluster``."""
+    per item (1, 2, 4, 8 or 16 and a divisor of N; by default ``cluster_size``
+    with the clusters ``step_plan`` says the card holds at once), each owning
+    ``N / cluster`` atom rows. The result does not depend on ``cluster``."""
+    _check_n_steps(n_steps)
+    B, N = fm.shape[:2]
+    if cluster is not None and (cluster not in STEP_CLUSTERS or N % cluster):
+        raise ValueError(f"cluster must be 1, 2, 4, 8 or 16 and divide {N} atoms")
     if fm.device.type == "cpu":
-        return fused_step_plain(fm, bm, residual, d2, gram_p, gate_tail=gate_tail, **geometry)
+        return _steps_plain(fm, bm, residual, d2, gram_p, n_steps, gate_tail, geometry)
     if cluster is None:
-        cluster = cluster_size(fm.shape[0], fm.shape[1], _sm_count(fm.device.index))
-    elif cluster not in (1, 2, 4, 8) or fm.shape[1] % cluster:
-        raise ValueError(f"cluster must be 1, 2, 4 or 8 and divide {fm.shape[1]} atoms")
+        shapes = (N, geometry["atom_size"], geometry["block"], geometry["n_blocks"],
+                  geometry["upd_blocks"])
+        cluster = cluster_size(B, N, lambda c: step_plan(*shapes, c).clusters)
     return _launch_step("mp_fused_step_pipelined", "cuda_fused_step_pipelined", fm, bm, residual,
-                        d2, gram_p, (fm.shape[0],), gate_tail, geometry, cluster)
+                        d2, gram_p, (B,) if n_steps is None else (n_steps, B), gate_tail,
+                        geometry, n_steps or 1, int(programmatic), cluster, chain=n_steps or 1)
 
 
 def cuda_fused_encode_lane(

@@ -7,7 +7,8 @@ recompute the last ``A`` map positions exactly when the event's atom runs
 past the signal end. The engines, selected as in ``mptpu``:
 
 - ``fused=True`` (shapes passing ``fused_step_applicable``): the CUDA
-  kernels of ``cuda_fused_mp``. One launch per step: the cluster kernel
+  kernels of ``cuda_fused_mp``. One launch per step, all ``n_steps`` of
+  them enqueued by one call: the cluster kernel
   ``cuda_fused_step_pipelined`` (``pipelined=True``, the default) or the
   one-block-per-item ``cuda_fused_step``. ``whole_loop=True``: the whole
   encode in one launch, ``cuda_fused_encode`` or, with ``lane_table=True``,
@@ -160,11 +161,7 @@ def sparse_code_fast(
             )
         else:
             step = cuda_fused_step_pipelined if pipelined else cuda_fused_step
-            steps = [
-                step(fm, bm, residual, d2, gram_p, gate_tail=gate_tail, **kw)
-                for _ in range(n_steps)
-            ]
-            ev = [torch.stack(x) for x in zip(*steps)]
+            ev = step(fm, bm, residual, d2, gram_p, gate_tail=gate_tail, n_steps=n_steps, **kw)
         return SparseCodeResult(ev[0], ev[1], ev[2], residual[:, None, :n_samples])
     elif fused:
         # the fused gate failed: the next-best engine

@@ -17,7 +17,11 @@ import torch
 from mptpu import sparse as jsp
 from mptpu.ops import unit_norm as j_unit_norm
 from mptpu.sparse.pallas_fused_mp import fused_step_applicable as j_applicable
-from mptpu.sparse.pallas_fused_mp import pallas_fused_encode
+from mptpu.sparse.pallas_fused_mp import (
+    pallas_fused_encode,
+    pallas_fused_step,
+    pallas_fused_step_pipelined,
+)
 from mptpu.sparse.pallas_mp import pallas_boundary_update
 from mptpu_torch import kernels
 from mptpu_torch import sparse as tsp
@@ -222,15 +226,38 @@ def test_lane_table_plain_selects_from_the_tables():
     assert torch.equal(ev.positions[0, 1:], ref.positions[0, 1:])
 
 
+# clusters of 16, 8, 4, 2, 1 blocks of the cluster step kernel that an H100
+# holds at once (cudaOccupancyMaxActiveClusters; one block fills an SM)
+STEP_RESIDENT = {16: 7, 8: 15, 4: 30, 2: 66, 1: 132}
+
+
 @pytest.mark.parametrize(
-    "batch,n_atoms,sms,want",
-    [(32, 512, 132, 4), (4, 512, 132, 8), (1, 512, 132, 8), (3, 16, 132, 8), (64, 512, 132, 2),
-     (200, 512, 132, 1), (4, 12, 132, 4), (40, 512, 132, 2)],
+    "batch,n_atoms,want",
+    [(32, 512, 8), (4, 512, 16), (1, 512, 16), (3, 16, 16), (64, 512, 2), (200, 512, 1),
+     (4, 12, 4), (40, 512, 8), (8, 512, 8), (4, 24, 8)],
 )
-def test_cluster_size_rule(batch, n_atoms, sms, want):
-    """The largest of 8, 4, 2, 1 blocks per item that divides the atoms and
-    keeps batch * cluster within the card's SMs."""
-    assert tsp.cluster_size(batch, n_atoms, sms) == want
+def test_cluster_size_rule(batch, n_atoms, want):
+    """The divisor of the atoms among 16, 8, 4, 2, 1 with the least
+    waves * (1 / size + 1 / 16), the larger among equals: up to 7 items take
+    16 blocks each; 32 items 8 blocks each in three waves of 15 clusters
+    (0.5625) rather than 16 in five waves of 7 or 4 in two waves of 30
+    (0.625 both); 64 items fit 66 clusters of 2 at once; 200 items take one
+    block each in two waves."""
+    assert tsp.cluster_size(batch, n_atoms, STEP_RESIDENT.get) == want
+
+
+def test_cluster_size_skips_sizes_the_card_does_not_hold():
+    """A size of which the card holds no cluster is never chosen, and only
+    divisors of the atoms are asked about."""
+    asked = []
+
+    def resident(c):
+        asked.append(c)
+        return {4: 0, 2: 7, 1: 20}[c]
+
+    assert tsp.cluster_size(6, 12, resident) == 2
+    assert asked == [4, 2, 1]
+    assert tsp.cluster_size(6, 7, lambda c: 100) == 1
 
 
 @pytest.mark.parametrize("kind", ["grid", "fori"])
@@ -455,3 +482,124 @@ def test_boundary_update_wrapper_matches_pallas_kernel_in_place(block):
     untouched = np.ones(g.nb_pad, bool)
     untouched[t0 : t0 + A // block] = False
     np.testing.assert_array_equal(tb.numpy()[..., untouched], bm[..., untouched])
+
+
+STEP_KERNELS = {
+    "fused_step": (tsp.cuda_fused_step, pallas_fused_step, False),
+    "fused_step_pipelined": (tsp.cuda_fused_step_pipelined, pallas_fused_step_pipelined, True),
+}
+
+
+@pytest.mark.parametrize("gate_tail", [True, False], ids=["gated", "ungated"])
+@pytest.mark.parametrize("kernel", list(STEP_KERNELS))
+def test_step_chain_equals_single_calls_and_mptpu(kernel, gate_tail):
+    """`cuda_fused_step(..., n_steps=k)` and `cuda_fused_step_pipelined(...,
+    n_steps=k)` on CPU tensors: events (k, B) and state equal k single calls
+    bit for bit, and equal mptpu's Pallas step kernel looped in interpret
+    mode on the same planted state (events identical, values rtol 1e-4 /
+    atol 1e-5, residual rtol 1e-3 / atol 1e-5, map and table rtol 1e-4 /
+    atol 1e-4), with a clipped event among them. The pipelined kernels take
+    the lane-padded table, the one-block kernels the plain one."""
+    step, j_step, padded = STEP_KERNELS[kernel]
+    k = 7
+    arrays, geom = encode_state_np(3)
+    if not padded:
+        arrays[1] = np.ascontiguousarray(arrays[1][..., : geom.n_blocks])
+    kw = geom._asdict()
+    kernels.reset_launches()
+
+    chain = [torch.from_numpy(a.copy()) for a in arrays]
+    ev = step(*chain, gate_tail=gate_tail, n_steps=k, **kw)
+    assert ev.atoms.shape == ev.positions.shape == ev.values.shape == (k, 3)
+    assert ev.atoms.dtype == ev.positions.dtype == torch.int32
+    assert (ev.positions > 1024 - 128).any()
+
+    single = [torch.from_numpy(a.copy()) for a in arrays]
+    one_by_one = [step(*single, gate_tail=gate_tail, **kw) for _ in range(k)]
+    assert one_by_one[0].atoms.shape == (3,)
+    for field in range(3):
+        assert torch.equal(ev[field], torch.stack([e[field] for e in one_by_one]))
+    for a, b in zip(chain[:3], single[:3]):
+        assert torch.equal(a, b)
+
+    jf, jb, jr = (jnp.asarray(a) for a in arrays[:3])
+    jd, jg = jnp.asarray(arrays[3]), jnp.asarray(arrays[4])
+    j_events = []
+    for _ in range(k):
+        jf, jb, jr, ja, jp, jv = j_step(jf, jb, jr, jd, jg, gate_tail=gate_tail, interpret=True,
+                                        **kw)
+        j_events.append((ja, jp, jv))
+    np.testing.assert_array_equal(ev.atoms.numpy(), np.stack([np.asarray(e[0]) for e in j_events]))
+    np.testing.assert_array_equal(ev.positions.numpy(),
+                                  np.stack([np.asarray(e[1]) for e in j_events]))
+    np.testing.assert_allclose(ev.values.numpy(), np.stack([np.asarray(e[2]) for e in j_events]),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(chain[2].numpy(), np.asarray(jr), rtol=1e-3, atol=1e-5)
+    np.testing.assert_allclose(chain[0].numpy(), np.asarray(jf), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(chain[1].numpy(), np.asarray(jb), rtol=1e-4, atol=1e-4)
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("kernel", list(STEP_KERNELS))
+def test_step_wrappers_refuse_bad_n_steps(kernel):
+    arrays, geom = encode_state_np(2)
+    with pytest.raises(ValueError, match="n_steps"):
+        STEP_KERNELS[kernel][0](*(torch.from_numpy(a) for a in arrays), n_steps=0,
+                                **geom._asdict())
+
+
+@pytest.mark.parametrize("cluster", [0, 3, 32])
+def test_fused_step_pipelined_refuses_a_bad_cluster(cluster):
+    """1, 2, 4, 8 or 16 blocks per item, and a divisor of the atoms (16
+    here), on CPU tensors too."""
+    arrays, geom = encode_state_np(2)
+    with pytest.raises(ValueError, match="cluster"):
+        tsp.cuda_fused_step_pipelined(*(torch.from_numpy(a) for a in arrays), cluster=cluster,
+                                      **geom._asdict())
+
+
+@pytest.mark.parametrize("pipelined", [True, False], ids=["pipelined", "one_block"])
+def test_sparse_code_fast_makes_one_step_call_per_encode(pipelined, monkeypatch):
+    """The fused per-step engine hands all n_steps to one call of the step
+    wrapper (no Python loop over steps), and its result still equals
+    mptpu's."""
+    from mptpu_torch.sparse import fast_mp
+
+    name = "cuda_fused_step_pipelined" if pipelined else "cuda_fused_step"
+    calls = []
+    real = getattr(fast_mp, name)
+
+    def counted(*args, **kw):
+        calls.append(kw.get("n_steps"))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(fast_mp, name, counted)
+    sig = planted(D16, 3, 1024)
+    j, t = run_both(D16, sig, 9, block=128, fused=True, pipelined=pipelined)
+    assert calls == [9]
+    assert_same(j, t)
+
+
+@pytest.mark.parametrize("n_steps,want", [(None, 1), (1, 1), (7, 7)])
+def test_launch_step_counts_the_chain_it_was_told(n_steps, want, monkeypatch):
+    """What a chain adds to `kernels.LAUNCHES` is the number of launches the
+    wrapper asked the C entry for, and the scratch of the rows' maxima goes
+    with it (the launcher itself is stood in for: no card here)."""
+    from mptpu_torch.sparse import cuda_fused_mp
+
+    seen = {}
+
+    def launch(name, counter, *args, count=1):
+        seen.update(name=name, counter=counter, count=count, n_pointers=sum(
+            isinstance(a, int) and a > 2**20 for a in args), steps=args[-2])
+
+    monkeypatch.setattr(cuda_fused_mp.kernels, "check", lambda *a, **k: None)
+    monkeypatch.setattr(cuda_fused_mp.kernels, "launch", launch)
+    arrays, geom = encode_state_np(2)
+    tensors = [torch.from_numpy(a) for a in arrays]
+    ev = cuda_fused_mp._launch_step(
+        "mp_fused_step", "cuda_fused_step", *tensors, (2,) if n_steps is None else (n_steps, 2),
+        True, geom._asdict(), n_steps or 1, 1, chain=n_steps or 1)
+    assert seen["count"] == want and seen["steps"] == want
+    assert seen["n_pointers"] == 10   # fm, bm, residual, d2, gram_p, tail, rows, 3 event arrays
+    assert ev.atoms.shape == ((2,) if n_steps is None else (n_steps, 2))
