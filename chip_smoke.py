@@ -18,12 +18,16 @@ Phases, each printing lines (any failure exits non-zero):
    band), both step kernels' chains of ``n_steps`` launches against the same
    steps launched one by one, bit for bit, the whole-encode kernel at every
    cluster size the card admits against the one-block step kernel looped,
-   bit for bit, the lane-table encode against the whole-encode kernel bit
-   for bit, the
-   launch probe against its plain version;
+   bit for bit, the lane-table encode at every cluster size, with and
+   without the tail gate, against the whole-encode kernel at the same size
+   bit for bit (and its lane table against the final map), the launch probe
+   (plain launches, launches chained under programmatic stream
+   serialization, one in-kernel loop) against its plain version;
 3. the paths, each with the launch counts set to 0 just before and read
    just after: the bench configuration through ``sparse_code_fast``
-   (``bench.py``'s inputs and settings; whole-encode kernel, timed); four
+   (``bench.py``'s inputs and settings; whole-encode kernel, timed), then
+   the same through the lane-table encode (timed), and the two kernels
+   timed in turns on copies of the same fresh state; four
    more paths of ``sparse_code_fast`` (cluster step kernel, one-block step
    kernel, lane-table encode, unfused with the boundary kernel), whose
    events on the planted signal must equal the naive ``sparse_code``'s;
@@ -31,14 +35,15 @@ Phases, each printing lines (any failure exits non-zero):
    and signal: 7 bands x 512 atoms x 128 taps x 2^15 samples x 64 steps,
    batch 4) through ``MultibandDictionaryLearning.recon / encode / learn /
    decode_global``, timed, recon SNR rising after learning; the launch
-   probe;
+   probe, each kind timed by the host clock and by CUDA events behind a
+   device spin long enough that all its launches are queued first;
 4. each kernel's time beside its plain version's, its bound and, for the
    boundary kernel, one ``torch.matmul`` computing the same product; the two
    step kernels per step from a chain of launches, with and without
    programmatic stream serialization; a chain of one encode's steps at each
    multiband band beside the whole-encode kernel doing the same steps in one
-   launch; the whole-encode and cluster step kernels by cluster size, with
-   the clusters the card holds at once beside each;
+   launch; the two whole-encode kernels and the cluster step kernel by
+   cluster size, with the clusters the card holds at once beside each;
 5. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -68,7 +73,15 @@ MULTIBAND = dict(n_samples=2**15, steps=64, n_atoms=512, atom_size=128, batch=4,
 LONG_ATOMS = dict(batch=2, n_atoms=16, atom_size=2048, n_samples=16384, n_steps=4, block=128,
                   clip_taps=1600)
 PROBE_STEPS = 3200   # scripts/grid_overhead_probe.py:53
+# the probe's kinds: label -> (kind, programmatic)
+PROBE_KINDS = {"grid": ("grid", False), "grid chained": ("grid", True), "fori": ("fori", False)}
 HOLD_CYCLES = 20_000_000   # about 10 ms of device spinning ahead of a timed run
+# the probe on the device clock: launches a timed call enqueues behind a
+# device spin of PROBE_HOLD_CYCLES (about 50 ms), which the host must have
+# queued before the spin ends; on an H100 CUDA's launch queue held 512 such
+# launches, not 1,024, and a host blocked on a full queue sets the pace again
+PROBE_QUEUED = 512
+PROBE_HOLD_CYCLES = 100_000_000
 
 # published peaks without tensor cores (NVIDIA data sheets): bytes/s, f32 FLOP/s
 PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12), "H100": (3.35e12, 67e12)}
@@ -219,6 +232,21 @@ def initial_lanes(fm, geom):
 
     lanes = torch.argmax(fm.reshape(*fm.shape[:2], geom.n_blocks, geom.block), dim=-1)
     return F.pad(lanes.to(torch.int32), (0, geom.nb_pad - geom.n_blocks))
+
+
+def assert_lane_tables(name, state, geom):
+    """After a lane-table encode (fm, bm, lanes, residual): lanes == argmax
+    and bm == max of every real block of the final map, pad lanes 0."""
+    import torch
+
+    fm, bm, lanes, _ = state
+    blocks = fm.reshape(*fm.shape[:2], geom.n_blocks, geom.block)
+    pad = lanes[..., geom.n_blocks :]
+    assert_identical(f"{name}: tables vs final map", [
+        ("lanes", lanes[..., : geom.n_blocks].long(), blocks.argmax(-1)),
+        ("bm", bm[..., : geom.n_blocks], blocks.amax(-1)),
+        ("pad lanes", pad, torch.zeros_like(pad)),
+    ])
 
 
 def stack_events(steps):
@@ -559,6 +587,96 @@ def multiband_phase(dev, mb, peaks, sync, records):
               f"{plain_ms:.4f} ms" + sweep)
 
 
+def queued_ms(fn, dev, hold_cycles=PROBE_HOLD_CYCLES):
+    """(ms, ahead) of one call of ``fn`` between CUDA events, the stream
+    first held busy by a device spin of ``hold_cycles``; ``ahead`` says that
+    the host had enqueued all of the call's work before the spin ended, so
+    that the events bracket device time alone, not the host's pace. On the
+    CPU: the host clock, and ahead."""
+    import torch
+
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3, True
+    torch.cuda.synchronize(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(hold_cycles)
+    start.record()
+    fn()
+    end.record()
+    ahead = not start.query()   # the spin still runs: every launch is queued
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end), ahead
+
+
+def probe_phase(dev, peaks, sync, records):
+    """The launch probe, launch counts set to 0 first and read last: each
+    kind timed by the host clock (calls of PROBE_STEPS, best of 3, as
+    before) and on the device clock (3 calls behind a device spin, each of
+    PROBE_QUEUED launches, or of one launch looping PROBE_STEPS times): us
+    per launch or per loop iteration."""
+    from mptpu_torch import kernels
+    from mptpu_torch.probes import probe_launches, probe_plain
+
+    kernels.reset_launches()
+    host_us, dev_us, dev_ms = {}, {}, {}
+    for label, (kind, programmatic) in PROBE_KINDS.items():
+        queued = PROBE_STEPS if kind == "fori" else PROBE_QUEUED
+        for vpu in (False, True):
+            def call(steps):
+                probe_launches(kind, vpu, steps, dev, programmatic=programmatic)
+
+            best = float("inf")
+            for _ in range(3):
+                sync()
+                t0 = time.perf_counter()
+                call(PROBE_STEPS)
+                sync()
+                best = min(best, time.perf_counter() - t0)
+            host_us[label, vpu] = best * 1e6 / PROBE_STEPS
+            runs = []
+            for _ in range(3):
+                ms, ahead = queued_ms(lambda: call(queued), dev)
+                if not ahead:
+                    fail(f"probe {label}: the host had not queued {queued} launches when the "
+                         f"device spin ended, so the device clock would read the host's pace")
+                runs.append(ms)
+            dev_ms[label, vpu] = float(np.mean(runs))
+            dev_us[label, vpu] = [ms * 1e3 / queued for ms in runs]
+    launches = dict(kernels.LAUNCHES)
+    want = {k: (6 * 2 * len(PROBE_KINDS) if k == "probe_launches" and dev.type == "cuda" else 0)
+            for k in launches}
+    if launches != want:
+        fail(f"probe phase: {launches}, expected {want}")
+    t0 = time.perf_counter()
+    probe_plain(True, PROBE_QUEUED, dev)
+    sync()
+    probe_plain_ms = (time.perf_counter() - t0) * 1e3
+    # the record: one call of PROBE_QUEUED launches with the arithmetic
+    bms, by = bound(4 * 8 * 128, 2 * 8 * 128 * PROBE_QUEUED, peaks)
+    records["probe_launches"].update(
+        launches=launches["probe_launches"], ms=dev_ms["grid", True], plain_ms=probe_plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=None, launches_per_call=PROBE_QUEUED,
+        ms_programmatic=dev_ms["grid chained", True],
+        us_per_launch=float(np.mean(dev_us["grid", True])),
+        us_per_launch_programmatic=float(np.mean(dev_us["grid chained", True])),
+        us_per_iteration_fori=float(np.mean(dev_us["fori", True])),
+        us_per_launch_host_clock=host_us["grid", True],
+    )
+    for label, (kind, _) in PROBE_KINDS.items():
+        unit = (f"iteration (one launch of {PROBE_STEPS})" if kind == "fori"
+                else f"launch ({PROBE_QUEUED} a call)")
+        print(f"probe {label}, us per {unit}: device clock "
+              + "; ".join(f"{'with' if vpu else 'without'} the arithmetic "
+                          f"{np.mean(dev_us[label, vpu]):.4f} (runs "
+                          f"{', '.join(f'{u:.4f}' for u in dev_us[label, vpu])})"
+                          for vpu in (False, True))
+              + f"; host clock, calls of {PROBE_STEPS}, best of 3, without / with: "
+              + ", ".join(f"{host_us[label, vpu]:.4f}" for vpu in (False, True)))
+    print(f"probe launches {launches}")
+
+
 def run(dev, cfg, peaks, sync, mb=MULTIBAND):
     """Phases 2-4 on device ``dev``; returns the kernels' records."""
     import torch
@@ -729,16 +847,11 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
         ("values", el.values, ek.values), ("fm", fm_l, states[0][0]),
         ("bm", bm_l, states[0][1]), ("residual", res_l, states[0][2]),
     ])
+    assert_lane_tables("lane encode", lane_states[0], geom)
     assert_events("lane encode vs plain", el, elp)
     assert_close("lane encode residual", res_l, lane_states[1][3], RESIDUAL_TOL)
     assert_close("lane encode fm", fm_l, lane_states[1][0], TAIL_TOL)
     assert_close("lane encode bm", bm_l, lane_states[1][1], TAIL_TOL)
-    blocks = fm_l.reshape(B, N, geom.n_blocks, block)
-    assert_identical("lane tables vs final map", [
-        ("lanes", lanes_l[..., : geom.n_blocks].long(), blocks.argmax(-1)),
-        ("bm", bm_l[..., : geom.n_blocks], blocks.amax(-1)),
-        ("pad lanes", lanes_l[..., geom.n_blocks :], torch.zeros_like(lanes_l[..., geom.n_blocks :])),
-    ])
     records["cuda_fused_encode_lane"] = dict(max_abs_err=max_err(
         [(a, b) for a, b in zip(lane_states[0], lane_states[1]) if a.dtype == torch.float32]
         + [(el.values, elp.values)]
@@ -746,34 +859,47 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
     print(f"check cuda_fused_encode_lane, {S} steps: bit-identical to cuda_fused_encode (events, "
           f"fm, bm, residual), lanes == argmax and bm == max of every block of the final map, "
           f"max abs err vs plain {records['cuda_fused_encode_lane']['max_abs_err']:.3e}")
-    # without the tail gate the tail blocks are rewritten at every step,
-    # outside the window of an interior event: a few items, a few steps
-    ungated = (fm0[:few].clone(), bm0_pad[:few].clone(), res0[:few].clone())
-    ungated_l = (ungated[0].clone(), ungated[1].clone(), lanes0[:few].clone(), ungated[2].clone())
-    eu = cuda_fused_encode(*ungated, d2, gram_p, n_steps=10, gate_tail=False, **kw)
-    eul = cuda_fused_encode_lane(*ungated_l, d2, gram_p, n_steps=10, gate_tail=False, **kw)
-    sync()
-    blocks = ungated_l[0].reshape(few, N, geom.n_blocks, block)
-    assert_identical("ungated lane encode vs ungated whole encode", [
-        ("atoms", eul.atoms, eu.atoms), ("positions", eul.positions, eu.positions),
-        ("values", eul.values, eu.values), ("fm", ungated_l[0], ungated[0]),
-        ("bm", ungated_l[1], ungated[1]), ("residual", ungated_l[3], ungated[2]),
-        ("lanes", ungated_l[2][..., : geom.n_blocks].long(), blocks.argmax(-1)),
-    ])
-    print(f"check cuda_fused_encode_lane without the tail gate, {few} items x 10 steps: "
-          f"bit-identical to cuda_fused_encode, lanes == argmax of every block")
-    del states, lane_states, fm_l, bm_l, lanes_l, res_l, blocks, fm0, bm0, bm0_pad, res0, windows
-    del ungated, ungated_l
+    del states, lane_states, fm_l, bm_l, lanes_l, res_l
+    # at every cluster size, with and without the tail gate (which rewrites
+    # the tail blocks at every step, outside the window of an interior
+    # event), the whole batch and all steps: bit for bit the whole-encode
+    # kernel at the same cluster size
+    if on_card:
+        refused = [c for c in sizes if encode_plan(*shapes, c, True).clusters < 1]
+        if refused:
+            fail(f"the card admits no cluster of {refused} blocks of the lane-table encode")
+    for gate in (True, False):
+        for c in sizes:
+            whole = (fm0.clone(), bm0_pad.clone(), res0.clone())
+            e2 = cuda_fused_encode(*whole, d2, gram_p, n_steps=S, gate_tail=gate, cluster=c, **kw)
+            lane = (fm0.clone(), bm0_pad.clone(), lanes0.clone(), res0.clone())
+            e5 = cuda_fused_encode_lane(*lane, d2, gram_p, n_steps=S, gate_tail=gate, cluster=c,
+                                        **kw)
+            sync()
+            name = f"lane encode, cluster of {c}, gate_tail={gate}"
+            assert_identical(f"{name}, against the whole encode at the same size", [
+                ("atoms", e5.atoms, e2.atoms), ("positions", e5.positions, e2.positions),
+                ("values", e5.values, e2.values), ("fm", lane[0], whole[0]),
+                ("bm", lane[1], whole[1]), ("residual", lane[3], whole[2]),
+            ])
+            assert_lane_tables(name, lane, geom)
+            del whole, lane
+    print(f"check cuda_fused_encode_lane at cluster sizes {sizes}, {B} items x {S} steps, with "
+          f"and without the tail gate: bit-identical to cuda_fused_encode at the same size "
+          f"(events, fm, bm, residual), lanes == argmax of every block, pad lanes 0")
+    del fm0, bm0, bm0_pad, res0, windows, lanes0
 
     for vpu in (False, True):
         want = probe_plain(vpu, PROBE_STEPS, dev)
-        for kind in ("grid", "fori"):
-            got = probe_launches(kind, vpu, PROBE_STEPS, dev)
+        for kind, programmatic in PROBE_KINDS.values():
+            got = probe_launches(kind, vpu, PROBE_STEPS, dev, programmatic=programmatic)
             sync()
-            assert_identical(f"probe {kind} vpu={vpu}", [("tile", got, want)])
+            assert_identical(f"probe {kind} (programmatic={programmatic}) vpu={vpu}",
+                             [("tile", got, want)])
     records["probe_launches"] = dict(max_abs_err=0.0)
-    print(f"check probe_launches vs plain, {PROBE_STEPS} steps, grid and fori, with and without "
-          f"the arithmetic: tiles bit-identical (tile[0, 0] = {float(want[0, 0]):.3f})")
+    print(f"check probe_launches vs plain, {PROBE_STEPS} steps, {', '.join(PROBE_KINDS)}, with "
+          f"and without the arithmetic: tiles bit-identical (tile[0, 0] = "
+          f"{float(want[0, 0]):.3f})")
 
     # ---- phase 3: the paths, through sparse_code_fast
     d_b_np, sig_b_np = bench_inputs(cfg)
@@ -808,6 +934,28 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
     snr = 10 * np.log10(e_sig / e_err)
     ms = float(np.mean(t_e2e))
 
+    # the same encode through the lane-table path, launches counted alike
+    lane_kw = dict(bench_kw, lane_table=True)
+    kernels.reset_launches()
+    lane_out = sparse_code_fast(sig_b, d_b, **lane_kw)   # warm-up
+    sync()
+    t_lane = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        lane_out = sparse_code_fast(sig_b, d_b, **lane_kw)
+        sync()
+        t_lane.append((time.perf_counter() - t0) * 1e3)
+    lane_launches = dict(kernels.LAUNCHES)
+    want = {k: (runs + 1 if k == "cuda_fused_encode_lane" and on_card else 0)
+            for k in lane_launches}
+    if lane_launches != want:
+        fail(f"lane-table bench path: {lane_launches} for {runs + 1} encodes")
+    assert_events("lane-table bench path vs bench path", lane_out, out)
+    lane_path_ms = float(np.mean(t_lane))
+    print(f"bench path with lane_table=True: {lane_path_ms:.3f} ms per encode (runs "
+          f"{', '.join(f'{t:.3f}' for t in t_lane)}); launches {lane_launches}")
+    del lane_out
+
     d2_b = unit_norm(d_b)
     gram_ms = timed(lambda: dictionary_gram(d2_b), 3, dev)
     corr_ms = timed(lambda: encode_state(sig_b, d2_b, geom), 3, dev)
@@ -817,16 +965,26 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
         fm, bm, res = encode_state(sig_b, d2_b, geom)
         return fm, F.pad(bm, (0, geom.nb_pad - geom.n_blocks), value=-3e38), res
 
-    enc_ms, found = [], []
-    for _ in range(3):
-        st = fresh_encode_state()
-        enc_ms.append(timed(
-            lambda: found.append(cuda_fused_encode(*st, d2_b, gram_b, n_steps=S, **kw)),
-            1, dev, warmup=False,
-        ))
+    # the whole-encode kernel and the lane-table encode back to back on
+    # copies of the same fresh state, in turns (K2 first, then K5 first)
+    enc_ms, lane_ms, found, found_l = [], [], [], []
+    for r in range(4):
+        fm_t, bm_t, res_t = fresh_encode_state()
+        st = (fm_t.clone(), bm_t.clone(), res_t.clone())
+        st_l = (fm_t, bm_t, initial_lanes(fm_t, geom), res_t)
+        runs_k = [
+            (enc_ms, lambda: found.append(cuda_fused_encode(*st, d2_b, gram_b, n_steps=S, **kw))),
+            (lane_ms, lambda: found_l.append(
+                cuda_fused_encode_lane(*st_l, d2_b, gram_b, n_steps=S, **kw))),
+        ]
+        for times, fn in (runs_k if r % 2 == 0 else runs_k[::-1]):
+            times.append(timed(fn, 1, dev, warmup=False))
+        del st, st_l, fm_t, bm_t, res_t
     ev = found[-1]
     kernel_ms = float(np.mean(enc_ms))
     assert_events("encode kernel vs bench path", ev, (out.atom_indices, out.positions, out.values))
+    assert_events("lane encode kernel vs bench path", found_l[-1],
+                  (out.atom_indices, out.positions, out.values))
     st = fresh_encode_state()
     sync()
     t0 = time.perf_counter()
@@ -840,30 +998,22 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
     records["cuda_fused_encode"].update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
                                         bound_by=by, library_ms=None)
     if on_card:
-        c = encode_cluster_size(B, N, lambda c: encode_plan(*shapes, c).clusters)
-        plan = encode_plan(*shapes, c)
-        print(f"bench path: cuda_fused_encode runs {B} clusters of {c} blocks "
-              f"({plan.smem_bytes} bytes of shared memory a block: ring of {plan.stages} stages, "
-              f"table {'on chip' if plan.table_on_chip else 'in global memory'}); the card holds "
-              f"{plan.clusters} such clusters at once (cudaOccupancyMaxActiveClusters)")
-        if plan.clusters < B:
-            fail(f"bench path: {B} clusters, {plan.clusters} resident: the encode runs in waves")
+        for name, lanes in (("cuda_fused_encode", False), ("cuda_fused_encode_lane", True)):
+            c = encode_cluster_size(B, N, lambda c: encode_plan(*shapes, c, lanes).clusters)
+            plan = encode_plan(*shapes, c, lanes)
+            print(f"bench path: {name} runs {B} clusters of {c} blocks "
+                  f"({plan.smem_bytes} bytes of shared memory a block: ring of {plan.stages} "
+                  f"stages, {'tables' if lanes else 'table'} "
+                  f"{'on chip' if plan.table_on_chip else 'in global memory'}); the card holds "
+                  f"{plan.clusters} such clusters at once (cudaOccupancyMaxActiveClusters)")
+            if plan.clusters < B:
+                fail(f"{name}: {B} clusters, {plan.clusters} resident: the encode runs in waves")
     print(f"bench path (sparse_code_fast, fused whole-loop, block {block}, depth "
           f"{cfg['depth']}): {S * B / (ms / 1e3):.1f} atoms/s, {ms:.3f} ms per encode "
           f"(runs {', '.join(f'{t:.3f}' for t in t_e2e)}); split: gram {gram_ms:.3f} ms, "
           f"correlation {corr_ms:.3f} ms, kernel {kernel_ms:.3f} ms; launches {main_launches} "
           f"for {runs + 1} encodes; SNR {snr:.3f} dB; "
           f"{int((ev.positions > n - A).sum())} clipped events")
-    lane_ms, found = [], []
-    for _ in range(3):
-        fm_t, bm_t, res_t = fresh_encode_state()
-        st = (fm_t, bm_t, initial_lanes(fm_t, geom), res_t)
-        lane_ms.append(timed(
-            lambda: found.append(cuda_fused_encode_lane(*st, d2_b, gram_b, n_steps=S, **kw)),
-            1, dev, warmup=False,
-        ))
-    assert_events("lane encode kernel vs bench path", found[-1],
-                  (out.atom_indices, out.positions, out.values))
     fm_t, bm_t, res_t = fresh_encode_state()
     st = (fm_t, bm_t, initial_lanes(fm_t, geom), res_t)
     sync()
@@ -872,12 +1022,21 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
     sync()
     lane_plain_ms = (time.perf_counter() - t0) * 1e3
     del st, fm_t, bm_t, res_t
-    l_bytes, l_flops = step_traffic(cfg, geom, found[-1].positions, chain=False,
+    l_bytes, l_flops = step_traffic(cfg, geom, found_l[-1].positions, chain=False,
                                     lane_table=True)
     l_bytes += 4 * 2 * (2 * B * N * geom.nb_pad + B * (n + A))   # both tables, residuals, once
     bms, by = bound(l_bytes, l_flops, peaks)
-    records["cuda_fused_encode_lane"].update(ms=float(np.mean(lane_ms)), plain_ms=lane_plain_ms,
-                                             bound_ms=bms, bound_by=by, library_ms=None)
+    lane_kernel_ms = float(np.mean(lane_ms))
+    records["cuda_fused_encode_lane"].update(
+        ms=lane_kernel_ms, plain_ms=lane_plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+        ms_whole_encode_same_run=kernel_ms, ms_lane_path=lane_path_ms)
+    print(f"time cuda_fused_encode_lane against cuda_fused_encode, copies of the same fresh "
+          f"bench state in turns, ms per encode: {lane_kernel_ms:.3f} (runs "
+          f"{', '.join(f'{t:.3f}' for t in lane_ms)}) against {kernel_ms:.3f} (runs "
+          f"{', '.join(f'{t:.3f}' for t in enc_ms)}), ratio {lane_kernel_ms / kernel_ms:.3f}; "
+          f"bound {bms:.3f} ms ({by}), reached to {bms / lane_kernel_ms:.2f}; end to end, the "
+          f"lane_table=True path {lane_path_ms:.3f} ms per encode beside the main path's "
+          f"{ms:.3f}")
     del gram_b, out, recon
 
     naive = sparse_code(sig_pl, d_pl, n_steps=S)
@@ -909,35 +1068,7 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
 
     multiband_phase(dev, mb, peaks, sync, records)
 
-    kernels.reset_launches()
-    probe_us = {}
-    for kind in ("grid", "fori"):
-        for vpu in (False, True):
-            best = float("inf")
-            for _ in range(3):
-                sync()
-                t0 = time.perf_counter()
-                probe_launches(kind, vpu, PROBE_STEPS, dev)
-                sync()
-                best = min(best, time.perf_counter() - t0)
-            probe_us[kind, vpu] = best * 1e6 / PROBE_STEPS
-    launches = dict(kernels.LAUNCHES)
-    if launches["probe_launches"] != (12 if on_card else 0):
-        fail(f"probe phase: {launches}")
-    t0 = time.perf_counter()
-    probe_plain(True, PROBE_STEPS, dev)
-    sync()
-    probe_plain_ms = (time.perf_counter() - t0) * 1e3
-    bms, by = bound(4 * 8 * 128, 2 * 8 * 128 * PROBE_STEPS, peaks)
-    records["probe_launches"].update(
-        launches=launches["probe_launches"], ms=probe_us["grid", True] * PROBE_STEPS / 1e3,
-        plain_ms=probe_plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
-        fori_ms=probe_us["fori", True] * PROBE_STEPS / 1e3,
-    )
-    print(f"probe, {PROBE_STEPS} steps, best of 3 by the host clock: one launch per step "
-          f"{probe_us['grid', False]:.3f} us/step empty, {probe_us['grid', True]:.3f} us/step with "
-          f"the arithmetic; one in-kernel loop {probe_us['fori', False]:.4f} us/step empty, "
-          f"{probe_us['fori', True]:.4f} us/step with the arithmetic; launches {launches}")
+    probe_phase(dev, peaks, sync, records)
 
     # ---- phase 4: per-kernel times
     fm, bm, res = encode_state(sig_b, d2_b, geom)
@@ -1008,19 +1139,25 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
               f"(ms per step, clusters the card holds at once, ring stages): "
               + ", ".join(f"{c}: {sweep[c]:.4f} ({step_plan(*shapes, c).clusters}, "
                           f"{step_plan(*shapes, c).stages})" for c in sweep))
-        k2_sweep = {}
-        for c in sizes:   # the bench encode again, at every cluster size
-            st = fresh_encode_state()
+        k2_sweep, k5_sweep = {}, {}
+        for c in sizes:   # the bench encode again, at every cluster size, both kernels
+            fm_t, bm_t, res_t = fresh_encode_state()
+            st = (fm_t.clone(), bm_t.clone(), res_t.clone())
+            st_l = (fm_t, bm_t, initial_lanes(fm_t, geom), res_t)
             k2_sweep[c] = timed(
                 lambda: cuda_fused_encode(*st, d2_b, gram_b, n_steps=S, cluster=c, **kw),
                 1, dev, warmup=False)
-            del st
-        print("time cuda_fused_encode at the bench shapes by cluster size: ms per encode "
-              "(clusters the card holds at once, ring stages, table on chip): "
-              + ", ".join(
-                  f"{c}: {ms:.3f} ({encode_plan(*shapes, c).clusters}, "
-                  f"{encode_plan(*shapes, c).stages}, {encode_plan(*shapes, c).table_on_chip})"
-                  for c, ms in k2_sweep.items()))
+            k5_sweep[c] = timed(
+                lambda: cuda_fused_encode_lane(*st_l, d2_b, gram_b, n_steps=S, cluster=c, **kw),
+                1, dev, warmup=False)
+            del st, st_l, fm_t, bm_t, res_t
+        for name, sweep, lanes in (("cuda_fused_encode", k2_sweep, False),
+                                   ("cuda_fused_encode_lane", k5_sweep, True)):
+            plans = {c: encode_plan(*shapes, c, lanes) for c in sweep}
+            print(f"time {name} at the bench shapes by cluster size: ms per encode "
+                  "(clusters the card holds at once, ring stages, tables on chip): "
+                  + ", ".join(f"{c}: {ms:.3f} ({plans[c].clusters}, {plans[c].stages}, "
+                              f"{plans[c].table_on_chip})" for c, ms in sweep.items()))
         # what a wave costs: as many items as clusters of 4 are resident at once
         fit = encode_plan(*shapes, 4).clusters if N % 4 == 0 else 0
         if 0 < fit < B:

@@ -9,8 +9,8 @@
 // thread-block cluster per item with the step loop inside the kernel.
 //
 // Both run the step body of mp_window.cuh (enc::encode_body), which says
-// what a step does and how; mp_pipelined.cu's cluster step kernel is its
-// third user.
+// what a step does and how; mp_pipelined.cu's cluster step kernel and
+// mp_lane.cu's lane-table encode are its other users.
 //
 // What bounds them on this card: bytes. Each item-step reads one gram row
 // (N x 2A floats, 2 MiB at 512 atoms x 512 taps) and reads and writes its
@@ -28,15 +28,15 @@
 // against bit for bit, not the fast one.
 #include "mp_window.cuh"
 
-using mp::Geometry;
+using enc::Geometry;
 
 __global__ void __launch_bounds__(enc::kThreads, 1)
 fused_step_kernel(float* fm, float* bm, float* residual, const float* __restrict__ d2,
                   const float* __restrict__ gram_p, float* tail, int* atoms, int* positions,
                   float* values, Geometry g, int stages, float* rows, int have_rows) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  enc::encode_body<true, false, enc::kStepStages, enc::kStepRowRegs>(
-      fm, bm, residual, d2, gram_p, tail, atoms, positions, values, g, 1, stages, 0, rows,
+  enc::encode_body<true, false, enc::kStepStages, enc::kStepRowRegs, false>(
+      fm, bm, nullptr, residual, d2, gram_p, tail, atoms, positions, values, g, 1, stages, 0, rows,
       have_rows, smem_raw);
 }
 
@@ -51,7 +51,7 @@ extern "C" int mp_fused_step(void* fm, void* bm, void* residual, void* d2, void*
                              int B, int N, int A, int W, int n_samples, int block, int pad,
                              int n_blocks, int nbt, int upd_blocks, int tail_start,
                              int gate_tail, int n_steps, int programmatic, void* stream) {
-  const Geometry g = mp::make_geometry(N, A, W, n_samples, block, pad, n_blocks, nbt, upd_blocks,
+  const Geometry g = enc::make_geometry(N, A, W, n_samples, block, pad, n_blocks, nbt, upd_blocks,
                                        tail_start, gate_tail);
   return (int)enc::launch_step_chain(fused_step_kernel, step_setup, false, fm, bm,
                                      residual, d2, gram_p, tail, rows, atoms, positions, values,
@@ -65,8 +65,8 @@ fused_encode_kernel(float* fm, float* bm, float* residual, const float* __restri
                     const float* __restrict__ gram_p, float* tail, int* atoms, int* positions,
                     float* values, Geometry g, int n_steps, int stages, int table_on_chip) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  enc::encode_body<false, true, enc::kMaxStages, enc::kRowRegs>(
-      fm, bm, residual, d2, gram_p, tail, atoms, positions, values, g, n_steps, stages,
+  enc::encode_body<false, true, enc::kMaxStages, enc::kRowRegs, false>(
+      fm, bm, nullptr, residual, d2, gram_p, tail, atoms, positions, values, g, n_steps, stages,
       table_on_chip, nullptr, 0, smem_raw);
 }
 
@@ -75,21 +75,12 @@ extern "C" int mp_fused_encode(void* fm, void* bm, void* residual, void* d2, voi
                                int N, int A, int W, int n_samples, int block, int pad,
                                int n_blocks, int nbt, int upd_blocks, int tail_start,
                                int gate_tail, int n_steps, int cluster_size, void* stream) {
-  const Geometry g = mp::make_geometry(N, A, W, n_samples, block, pad, n_blocks, nbt, upd_blocks,
-                                   tail_start, gate_tail);
-  enc::Plan plan;
-  if (!enc::make_plan(g, cluster_size, false, plan)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = enc::ensure_setup(fused_encode_kernel, plan.smem, cluster_size, encode_setup);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t config;
-  cudaLaunchAttribute attr[2];
-  enc::launch_config(config, attr, B, cluster_size, true, plan.smem, stream);
-  err = cudaLaunchKernelEx(&config, fused_encode_kernel, (float*)fm, (float*)bm,
-                           (float*)residual, (const float*)d2, (const float*)gram_p,
-                           (float*)tail, (int*)atoms, (int*)positions, (float*)values, g, n_steps,
-                           plan.stages, plan.table_on_chip);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const Geometry g = enc::make_geometry(N, A, W, n_samples, block, pad, n_blocks, nbt, upd_blocks,
+                                       tail_start, gate_tail);
+  return (int)enc::launch_encode(fused_encode_kernel, encode_setup, false, B, cluster_size, g,
+                                 n_steps, stream, (float*)fm, (float*)bm, (float*)residual,
+                                 (const float*)d2, (const float*)gram_p, (float*)tail,
+                                 (int*)atoms, (int*)positions, (float*)values);
 }
 
 // The plan of mp_fused_encode at these shapes and cluster size, without a
@@ -99,22 +90,6 @@ extern "C" int mp_fused_encode(void* fm, void* bm, void* residual, void* d2, voi
 // where the shapes admit no plan.
 extern "C" int mp_fused_encode_plan(int N, int A, int block, int n_blocks, int upd_blocks,
                                     int cluster_size, int* out) {
-  const Geometry g = mp::make_geometry(N, A, n_blocks * block, 0, block, 0, n_blocks, n_blocks,
-                                       upd_blocks, 0, 1);
-  enc::Plan plan;
-  out[0] = out[1] = out[2] = out[3] = 0;
-  if (!enc::make_plan(g, cluster_size, false, plan)) return 0;
-  cudaError_t err = enc::ensure_setup(fused_encode_kernel, plan.smem, cluster_size, encode_setup);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t config;
-  cudaLaunchAttribute attr[2];
-  enc::launch_config(config, attr, 1, cluster_size, true, plan.smem, nullptr);
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, fused_encode_kernel, &config);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = clusters;
-  out[1] = plan.stages;
-  out[2] = plan.table_on_chip;
-  out[3] = plan.smem;
-  return 0;
+  return enc::encode_plan(fused_encode_kernel, encode_setup, false, N, A, block, n_blocks,
+                          upd_blocks, cluster_size, out);
 }

@@ -30,7 +30,7 @@
 // launch's latency and preamble hide under the step before it.
 #include "mp_window.cuh"
 
-using mp::Geometry;
+using enc::Geometry;
 
 __global__ void __launch_bounds__(enc::kThreads, 1)
 fused_step_pipelined_kernel(float* fm, float* bm, float* residual, const float* __restrict__ d2,
@@ -38,8 +38,8 @@ fused_step_pipelined_kernel(float* fm, float* bm, float* residual, const float* 
                             int* positions, float* values, Geometry g, int stages, float* rows,
                             int have_rows) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  enc::encode_body<true, true, enc::kStepStages, enc::kStepRowRegs>(
-      fm, bm, residual, d2, gram_p, tail, atoms, positions, values, g, 1, stages, 0, rows,
+  enc::encode_body<true, true, enc::kStepStages, enc::kStepRowRegs, false>(
+      fm, bm, nullptr, residual, d2, gram_p, tail, atoms, positions, values, g, 1, stages, 0, rows,
       have_rows, smem_raw);
 }
 
@@ -56,7 +56,7 @@ extern "C" int mp_fused_step_pipelined(void* fm, void* bm, void* residual, void*
                                        int upd_blocks, int tail_start, int gate_tail,
                                        int n_steps, int programmatic, int cluster_size,
                                        void* stream) {
-  const Geometry g = mp::make_geometry(N, A, W, n_samples, block, pad, n_blocks, nbt, upd_blocks,
+  const Geometry g = enc::make_geometry(N, A, W, n_samples, block, pad, n_blocks, nbt, upd_blocks,
                                        tail_start, gate_tail);
   return (int)enc::launch_step_chain(fused_step_pipelined_kernel, setup, true, fm, bm,
                                      residual, d2, gram_p, tail, rows, atoms, positions, values,

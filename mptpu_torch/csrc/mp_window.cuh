@@ -1,7 +1,13 @@
-// The greedy fast-MP step body that the whole-encode kernel
-// (mp_fused.cu: mp_fused_encode) and the two per-step kernels (mp_fused.cu:
-// mp_fused_step, mp_pipelined.cu: mp_fused_step_pipelined) share: one
-// function template, encode_body, instantiated three times.
+// The greedy fast-MP step body that the two whole-encode kernels
+// (mp_fused.cu: mp_fused_encode, mp_lane.cu: mp_fused_encode_lane) and the
+// two per-step kernels (mp_fused.cu: mp_fused_step, mp_pipelined.cu:
+// mp_fused_step_pipelined) share: one function template, encode_body,
+// instantiated four times.
+//
+// It computes what the Pallas step body computes
+// (mptpu/sparse/pallas_fused_mp.py _step_kernel, :69-272), indexing directly
+// where the TPU kernel rolls lanes, builds a Hankel matrix by a roll ladder,
+// places block maxima by a one-hot matmul and refines from an 8-row slab.
 //
 // One item belongs to C thread blocks (a cluster, or one block), rank r
 // owning atom rows [r * N / C, (r + 1) * N / C) of the map, the block-max
@@ -44,29 +50,79 @@
 // the registers hold stage it at once); and whatever does not depend on the
 // previous step (the shared-memory carve-up, the mbarriers) is done before
 // griddepcontrol.wait, so that under programmatic stream serialization a
-// launch's latency hides under the step before it. No
-// rank touches a peer's shared memory after the step's one cluster barrier
-// (the candidates are pushed before it), so a block may exit as soon as its
-// rows are done; that every peer runs before the first push is what a split
-// barrier says, arrived at in the first instruction and long complete where
-// it is waited for.
+// launch's latency hides under the step before it.
+//
+// kLanes (whole encode only) keeps beside the block-max table an int table
+// of the same layout, the first lane of each block's maximum, and beside
+// each row's maximum and first block the lane of that maximum, so that the
+// select reads the winner's value and position from shared memory and no
+// map block: the candidate is (table value, flat index, table value, its
+// lane's position). The window pass takes each block's first maximum lane
+// with its maximum (float equality against the maximum, the smallest lane
+// winning; an earlier chunk of a block keeps a tie), and every path that
+// writes a table entry writes its lane.
+//
+// No rank touches a peer's shared memory after the step's one cluster
+// barrier (the candidates are pushed before it), so a block may exit as soon
+// as its rows are done; that every peer runs before the first push is what a
+// split barrier says, arrived at in the first instruction and long complete
+// where it is waited for.
 //
 // Numerics are those of the plain version: the window subtract is
-// __fsub_rn(a, __fmul_rn(v, g)) and each tail sum a k-ascending f32 FMA
-// chain, so events, map, table and residual are the same bit for bit at any
-// cluster size and in all three kernels.
+// __fsub_rn(a, __fmul_rn(v, g)) (nvcc would otherwise contract a - v*g into
+// one FMA, while the plain PyTorch version rounds the product and the
+// difference separately) and each tail sum a k-ascending f32 FMA chain, so
+// events, map, table and residual are the same bit for bit at any cluster
+// size and in all four kernels. Ties keep the first (smallest) flat index
+// among equal maxima, as torch.argmax and jnp.argmax do.
 #pragma once
 
+#include <climits>
 #include <cooperative_groups.h>
 #include <cstdint>
+#include <cuda_runtime.h>
+#include <math_constants.h>
 #include <type_traits>
-
-#include "mp_step.cuh"
 
 namespace enc {
 
 namespace cg = cooperative_groups;
-using mp::Geometry;
+
+struct Geometry {
+  int N;           // atoms
+  int A;           // taps
+  int W;           // padded correlation-map width
+  int L;           // residual row length, n_samples + A
+  int n_samples;
+  int block;       // lanes per block of the block-max table
+  int pad;         // left pad of the map
+  int n_blocks;    // real blocks per map row
+  int nbt;         // row stride of the block-max table (n_blocks or lane-padded)
+  int upd_blocks;  // blocks an update window spans
+  int tail_start;  // map offset of the last A positions
+  int gate_tail;   // recompute the tail only for clipped events
+};
+
+inline Geometry make_geometry(int N, int A, int W, int n_samples, int block, int pad,
+                              int n_blocks, int nbt, int upd_blocks, int tail_start,
+                              int gate_tail) {
+  return Geometry{N, A, W, n_samples + A, n_samples, block, pad,
+                  n_blocks, nbt, upd_blocks, tail_start, gate_tail};
+}
+
+__device__ __forceinline__ void keep_first_max(float& v, int& i, float ov, int oi) {
+  if (ov > v || (ov == v && oi < i)) {
+    v = ov;
+    i = oi;
+  }
+}
+
+// Whether the boundary tail must be recomputed for an event at position:
+// only when its atom ran past the signal end (for interior events the gram
+// subtract is exact), or always without the gate.
+__device__ __forceinline__ bool event_clipped(int position, const Geometry g) {
+  return !g.gate_tail || position > g.n_samples - g.A;
+}
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
@@ -184,7 +240,7 @@ __device__ __forceinline__ float ordered_back(int i) {
 __device__ __forceinline__ void block_first_max(float& v, int& i, Scratch& s) {
   const unsigned full = 0xffffffffu;
   for (int o = 16; o > 0; o >>= 1) {
-    mp::keep_first_max(v, i, __shfl_down_sync(full, v, o), __shfl_down_sync(full, i, o));
+    keep_first_max(v, i, __shfl_down_sync(full, v, o), __shfl_down_sync(full, i, o));
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) {
@@ -196,7 +252,7 @@ __device__ __forceinline__ void block_first_max(float& v, int& i, Scratch& s) {
     v = lane < kWarps ? s.v[lane] : -CUDART_INF_F;
     i = lane < kWarps ? s.i[lane] : INT_MAX;
     for (int o = 16; o > 0; o >>= 1) {
-      mp::keep_first_max(v, i, __shfl_down_sync(full, v, o), __shfl_down_sync(full, i, o));
+      keep_first_max(v, i, __shfl_down_sync(full, v, o), __shfl_down_sync(full, i, o));
     }
     if (lane == 0) {
       s.rv = v;
@@ -257,15 +313,17 @@ __device__ __forceinline__ void warp_first_max(float& v, int& c) {
 // 2 x items x N words (the rows' maxima as floats, then their first blocks
 // as ints), which this launch fills first unless have_rows; without kStep
 // both are unused. smem is the block's dynamic shared memory, laid out as
-// make_plan counts it. kStages bounds stages.
-template <bool kStep, bool kCluster, int kStages, int kRegs>
-__device__ __forceinline__ void encode_body(float* fm, float* bm, float* residual,
+// make_plan counts it. kStages bounds stages. With kLanes, lanes is the lane
+// table (bm's layout), kept current in place; without it, unused.
+template <bool kStep, bool kCluster, int kStages, int kRegs, bool kLanes>
+__device__ __forceinline__ void encode_body(float* fm, float* bm, int* lanes, float* residual,
                                             const float* __restrict__ d2,
                                             const float* __restrict__ gram_p, float* tail,
                                             int* atoms, int* positions, float* values,
                                             const Geometry g, int n_steps, int stages,
                                             int table_on_chip, float* rows, int have_rows,
                                             unsigned char* smem) {
+  static_assert(!(kStep && kLanes), "the lane table is the whole encode's");
   __shared__ Scratch s;
   // every rank's candidate of a step, written here by the ranks themselves
   // (double-buffered where the step loop is inside the kernel)
@@ -289,6 +347,7 @@ __device__ __forceinline__ void encode_body(float* fm, float* bm, float* residua
   // per table row of the rank: its maximum and the first block that holds it
   float* rmax = ring + (size_t)stages * stage_floats;
   int* rarg = reinterpret_cast<int*>(rmax + nrows);
+  int* rlane = rarg + nrows;   // kLanes: the lane of each row's maximum in block rarg
   if constexpr (kStep) {
     rmax = rows + (size_t)b * g.N + row0;
     rarg = reinterpret_cast<int*>(rows + (size_t)B * g.N) + (size_t)b * g.N + row0;
@@ -298,8 +357,10 @@ __device__ __forceinline__ void encode_body(float* fm, float* bm, float* residua
   float* res_b = residual + (size_t)b * g.L;
   float* tail_b = tail + (size_t)b * g.N * g.A;
 
-  // the rank's table rows, tbl[r * tstride + blk] for its r-th row
+  // the rank's table rows, tbl[r * tstride + blk] for its r-th row, and with
+  // kLanes its lane-table rows ltbl alike
   float* tbl = bm_b + (size_t)row0 * g.nbt;
+  int* ltbl = kLanes ? lanes + ((size_t)b * g.N + row0) * g.nbt : nullptr;
   int tstride = g.nbt;
   auto summarise_rows = [&]() {
     for (int r = warp; r < nrows; r += kWarps) {
@@ -316,6 +377,7 @@ __device__ __forceinline__ void encode_body(float* fm, float* bm, float* residua
       if (lane == 0) {
         rmax[r] = v;
         rarg[r] = c_first == INT_MAX ? 0 : c_first;
+        if constexpr (kLanes) rlane[r] = c_first == INT_MAX ? 0 : ltbl[r * tstride + c_first];
       }
     }
   };
@@ -350,11 +412,14 @@ __device__ __forceinline__ void encode_body(float* fm, float* bm, float* residua
     }
   } else {
     if (table_on_chip) {
-      tbl = rmax + 2 * nrows;
+      tbl = rmax + (kLanes ? 3 : 2) * nrows;
       tstride = g.n_blocks;
+      int* const lanes_g = ltbl;
+      if constexpr (kLanes) ltbl = reinterpret_cast<int*>(tbl + (size_t)nrows * g.n_blocks);
       for (int r = warp; r < nrows; r += kWarps) {
         for (int c = lane; c < g.n_blocks; c += 32) {
           tbl[r * tstride + c] = bm_b[(size_t)(row0 + r) * g.nbt + c];
+          if constexpr (kLanes) ltbl[r * tstride + c] = lanes_g[(size_t)r * g.nbt + c];
         }
       }
       __syncthreads();
@@ -380,25 +445,33 @@ __device__ __forceinline__ void encode_body(float* fm, float* bm, float* residua
     float v = -CUDART_INF_F;
     int idx = INT_MAX;
     for (int r = tid; r < nrows; r += kThreads) {
-      mp::keep_first_max(v, idx, rmax[r], (row0 + r) * g.n_blocks + rarg[r]);
+      keep_first_max(v, idx, rmax[r], (row0 + r) * g.n_blocks + rarg[r]);
     }
     block_first_max(v, idx, s);
     if constexpr (kStep && kCluster) cluster_wait();   // every peer runs by now
     if (warp == 0) {
       const int row = idx / g.n_blocks, blk = idx - row * g.n_blocks;
-      // straight from L2, where the window pass's stores to the map land
-      const float* p = fm_b + (size_t)row * g.W + (size_t)blk * g.block;
-      float fv = -CUDART_INF_F;
-      int fl = INT_MAX;
-      for (int l = lane; l < g.block; l += 32) {
-        const float x = __ldcg(p + l);
-        if (x > fv) {
-          fv = x;
-          fl = l;
+      float fv;
+      int fl;
+      if constexpr (kLanes) {
+        // the table entry is the value, the row's lane the lane: no map read
+        fv = v;
+        fl = rlane[row - row0];
+      } else {
+        // straight from L2, where the window pass's stores to the map land
+        const float* p = fm_b + (size_t)row * g.W + (size_t)blk * g.block;
+        fv = -CUDART_INF_F;
+        fl = INT_MAX;
+        for (int l = lane; l < g.block; l += 32) {
+          const float x = __ldcg(p + l);
+          if (x > fv) {
+            fv = x;
+            fl = l;
+          }
         }
+        warp_first_max(fv, fl);
+        if (fl == INT_MAX) fl = 0;
       }
-      warp_first_max(fv, fl);
-      if (fl == INT_MAX) fl = 0;
       // lane l hands the candidate to rank l, so that after the barrier
       // every rank reads its own shared memory only
       if (lane < C) {
@@ -445,7 +518,7 @@ __device__ __forceinline__ void encode_body(float* fm, float* bm, float* residua
 
     // surgery: the row in global memory by rank 0, the tail segment by all
     // (per step launch only for a clipped event, from the registers)
-    const bool clipped = mp::event_clipped(position, g);
+    const bool clipped = event_clipped(position, g);
     if constexpr (kStep) {
       if (clipped && !seg_staged) {
 #pragma unroll
@@ -518,17 +591,40 @@ __device__ __forceinline__ void encode_body(float* fm, float* bm, float* residua
           float* out = fwin + (size_t)i * g.W;   // the row's window in the map
           const float* tr = tail_b + (size_t)(row0 + i) * g.A;
           float bmax = -CUDART_INF_F;   // maximum of the block being walked
+          int blane = 0;                // kLanes: its first lane in the block
           float nv = -CUDART_INF_F;     // first maximum of the window's blocks
           int nc = INT_MAX;
-          // a chunk's maximum (an ordered int per lane) into its block's
-          auto chunk_done = [&](int c, int m) {
-            bmax = fmaxf(bmax, ordered_back(__reduce_max_sync(0xffffffffu, m)));
+          int nl = 0;                   // kLanes: its lane
+          // kLanes: the chunk position of the first of a lane's four values
+          // that equals their maximum lm (float equality: -0.0 equals +0.0,
+          // as torch.argmax sees them)
+          auto first_at = [&](const float4& w, float lm) {
+            return 4 * lane + (w.x == lm ? 0 : w.y == lm ? 1 : w.z == lm ? 2 : 3);
+          };
+          // a chunk's maximum (an ordered int per lane) into its block's;
+          // at is the lane's first_at
+          auto chunk_done = [&](int c, int m, int at) {
+            const float cm = ordered_back(__reduce_max_sync(0xffffffffu, m));
+            if constexpr (kLanes) {
+              // the chunk's first position holding its maximum: the
+              // smallest at among the lanes whose maximum equals it; an
+              // earlier chunk of the block keeps a tie
+              const int cb = c & (chunks_per_block - 1);
+              const int first = __reduce_min_sync(
+                  0xffffffffu, ordered_back(m) == cm ? cb * 128 + at : INT_MAX);
+              if (cb == 0 || cm > bmax) blane = first;
+            }
+            bmax = fmaxf(bmax, cm);
             if (((c + 1) & (chunks_per_block - 1)) == 0) {
               const int blk = ws_blk + (c >> chunk_shift);
-              if (lane == 0) tbl[i * tstride + blk] = bmax;
+              if (lane == 0) {
+                tbl[i * tstride + blk] = bmax;
+                if constexpr (kLanes) ltbl[i * tstride + blk] = blane;
+              }
               if (bmax > nv) {   // blocks ascend: the first maximum stays
                 nv = bmax;
                 nc = blk;
+                nl = blane;
               }
               bmax = -CUDART_INF_F;
             }
@@ -557,7 +653,7 @@ __device__ __forceinline__ void encode_body(float* fm, float* bm, float* residua
                 // of this block (the plan pads for it), values not used
                 if (kS4 != 0) hi[u] = *reinterpret_cast<const float4*>(gr + ga + 4);
               }
-              int m[kUnroll];
+              int m[kUnroll], at[kUnroll];
 #pragma unroll
               for (int u = 0; u < kUnroll; ++u) {
                 if (u >= run) continue;
@@ -572,11 +668,13 @@ __device__ __forceinline__ void encode_body(float* fm, float* bm, float* residua
                 w[u].z = __fsub_rn(w[u].z, __fmul_rn(value, g2));
                 w[u].w = __fsub_rn(w[u].w, __fmul_rn(value, g3));
                 *reinterpret_cast<float4*>(out + j) = w[u];
-                m[u] = ordered(fmaxf(fmaxf(w[u].x, w[u].y), fmaxf(w[u].z, w[u].w)));
+                const float lm = fmaxf(fmaxf(w[u].x, w[u].y), fmaxf(w[u].z, w[u].w));
+                m[u] = ordered(lm);
+                if constexpr (kLanes) at[u] = first_at(w[u], lm);
               }
 #pragma unroll
               for (int u = 0; u < kUnroll; ++u) {
-                if (u < run) chunk_done(c + u, m[u]);
+                if (u < run) chunk_done(c + u, m[u], kLanes ? at[u] : 0);
               }
               c += run;
               continue;
@@ -597,7 +695,8 @@ __device__ __forceinline__ void encode_body(float* fm, float* bm, float* residua
               if ((unsigned)(gi + 3) < span) w.w = __fsub_rn(w.w, __fmul_rn(value, gr[gi + 3]));
             }
             *reinterpret_cast<float4*>(out + j) = w;
-            chunk_done(c, ordered(fmaxf(fmaxf(w.x, w.y), fmaxf(w.z, w.w))));
+            const float lm = fmaxf(fmaxf(w.x, w.y), fmaxf(w.z, w.w));
+            chunk_done(c, ordered(lm), kLanes ? first_at(w, lm) : 0);
             ++c;
           }
           // every lane has read the stage: refill it
@@ -627,10 +726,16 @@ __device__ __forceinline__ void encode_body(float* fm, float* bm, float* residua
             }
             warp_first_max(ov, oc);
           }
-          mp::keep_first_max(ov, oc, nv, nc);
+          // kLanes: the window's lane where its block wins, else the old
+          // maximum's, kept or (after a rescan) read from the lane table
+          const bool window_wins = nv > ov || (nv == ov && nc < oc);
+          keep_first_max(ov, oc, nv, nc);
           if (lane == 0) {
             rmax[i] = ov;
             rarg[i] = oc;
+            if constexpr (kLanes) {
+              rlane[i] = window_wins ? nl : rescan ? ltbl[i * tstride + oc] : rlane[i];
+            }
           }
           __syncwarp();
         }
@@ -652,13 +757,29 @@ __device__ __forceinline__ void encode_body(float* fm, float* bm, float* residua
         float* f = fm_b + (size_t)(row0 + i) * g.W + (size_t)b_ * g.block;
         const float* tr = tail_b + (size_t)(row0 + i) * g.A + (size_t)t * g.block;
         float m = -CUDART_INF_F;
+        int ml = INT_MAX;   // kLanes: the lane's first lane of m
         for (int l = lane; l < g.block; l += 32) {
           const float val = tr[l];
           f[l] = val;
-          m = fmaxf(m, val);
+          if constexpr (kLanes) {
+            if (val > m) {
+              m = val;
+              ml = l;
+            }
+          } else {
+            m = fmaxf(m, val);
+          }
         }
-        m = ordered_back(__reduce_max_sync(0xffffffffu, ordered(m)));
-        if (lane == 0) tbl[i * tstride + b_] = m;
+        if constexpr (kLanes) {
+          warp_first_max(m, ml);
+          if (lane == 0) {
+            tbl[i * tstride + b_] = m;
+            ltbl[i * tstride + b_] = ml;
+          }
+        } else {
+          m = ordered_back(__reduce_max_sync(0xffffffffu, ordered(m)));
+          if (lane == 0) tbl[i * tstride + b_] = m;
+        }
       }
       __syncthreads();
       summarise_rows();
@@ -677,6 +798,9 @@ __device__ __forceinline__ void encode_body(float* fm, float* bm, float* residua
       for (int r = warp; r < nrows; r += kWarps) {
         for (int c = lane; c < g.n_blocks; c += 32) {
           bm_b[(size_t)(row0 + r) * g.nbt + c] = tbl[r * tstride + c];
+          if constexpr (kLanes) {
+            lanes[((size_t)b * g.N + row0 + r) * g.nbt + c] = ltbl[r * tstride + c];
+          }
         }
       }
     }
@@ -697,13 +821,35 @@ struct Plan {
 // kMinStagesWithTable stages. A per-step kernel's ring is no deeper than the
 // rank has rows. Returns false where nothing fits or the shapes break the
 // kernels' rules (128-float chunks, 16-byte bulk copies).
-static bool make_plan(const Geometry& g, int C, bool step, Plan& plan) {
+//
+// With lanes (the lane-table encode) each row keeps a third word, its
+// maximum's lane, and the rank's table share costs twice the bytes, floats
+// and ints: both tables go on chip together or stay in global memory (L2)
+// together. At the bench shapes (512 atoms x 512 taps, 136 blocks a row)
+// the card holds 30 clusters of 4, so 32 items take clusters of 2
+// (encode_cluster_size), where a rank's 256 table rows (139 KB of floats)
+// already stay in global memory without lanes, and so both tables do with
+// them (278 KB). Clusters of 8 put both tables of a rank's 64 rows (70 KB)
+// on chip beside 16 stages.
+//
+// With lanes the ring also holds a multiple of kWarps stages where it holds
+// more than kWarps, so that every warp owns as many stages, and rows, as
+// any other: 16 at clusters of 2, where 23 would fit. Row i goes through
+// stage i % stages, which warp (i % stages) % kWarps owns, so a ring of 23
+// gives seven warps two stages and twice the rows of the others, and the
+// slowest warp sets the step's time. The lane work lengthens a row enough
+// that the lane-table encode runs faster with 16 stages than with 23, while
+// the whole encode without lanes runs faster with its 24 than with 16, so
+// its plan keeps them (tools/encode_stamps.py --stages 0 16 23 times both).
+static bool make_plan(const Geometry& g, int C, bool step, Plan& plan, bool lanes = false) {
   if (C < 1 || C > (step ? kMaxStepCluster : 8) || (C & (C - 1)) || g.N % C) return false;
   if (g.block % 128 || (g.block & (g.block - 1)) || g.A % 128 || g.W % 4) return false;
+  if (step && lanes) return false;
   const int nrows = g.N / C;
   // 16 bytes of padding: the window pass may read that far past the last
-  // stage's gram row
-  const int fixed = (kTailAtoms * g.A + 2 * g.A + 2 * nrows + 4) * (int)sizeof(float);
+  // stage's gram row (into the rows' maxima, which follow the ring)
+  const int row_words = lanes ? 3 : 2;
+  const int fixed = (kTailAtoms * g.A + 2 * g.A + row_words * nrows + 4) * (int)sizeof(float);
   const int stage = (g.upd_blocks * g.block + 2 * g.A) * (int)sizeof(float);
   if (step) {
     long long stages = (kStepSmemBudget - fixed) / stage;
@@ -715,12 +861,13 @@ static bool make_plan(const Geometry& g, int C, bool step, Plan& plan) {
     plan.smem = fixed + plan.stages * stage;
     return true;
   }
-  const long long table = (long long)nrows * g.n_blocks * (long long)sizeof(float);
+  const long long table = (long long)nrows * g.n_blocks * (long long)sizeof(float) * (lanes ? 2 : 1);
   const long long with_table = (kSmemBudget - fixed - table) / stage;
   plan.table_on_chip = with_table >= kMinStagesWithTable;
   const long long stages = plan.table_on_chip ? with_table : (kSmemBudget - fixed) / stage;
   if (stages < 1) return false;
   plan.stages = (int)(stages < kMaxStages ? stages : kMaxStages);
+  if (lanes && plan.stages > kWarps) plan.stages -= plan.stages % kWarps;
   plan.smem = fixed + plan.stages * stage + (plan.table_on_chip ? (int)table : 0);
   return true;
 }
@@ -819,29 +966,79 @@ static cudaError_t launch_step_chain(StepKernel kernel, Setups& setup, bool clus
   return cudaGetLastError();
 }
 
-// How the cluster step kernel runs at these shapes with C blocks per item,
-// without a launch: out = {clusters of that size the card holds at once
-// (cudaOccupancyMaxActiveClusters; more items than that run in waves), ring
-// stages, dynamic shared-memory bytes}, all 0 where the shapes admit no plan.
-static int step_plan(StepKernel kernel, Setups& setup, int N, int A, int block, int n_blocks,
-                     int upd_blocks, int C, int* out) {
-  const Geometry g = mp::make_geometry(N, A, n_blocks * block, 0, block, 0, n_blocks, n_blocks,
-                                       upd_blocks, 0, 1);
+// Launch a whole-encode kernel (encode_body<false, true, ...>) once on the
+// stream: grid (C, items), one cluster of C blocks per item, with
+// make_plan's plan (lanes: the lane-table encode's). pointers are the
+// kernel's arguments before the Geometry, cast to its types. setup: see
+// ensure_setup.
+template <typename Kernel, typename... Pointers>
+static cudaError_t launch_encode(Kernel kernel, Setups& setup, bool lanes, int items, int C,
+                                 const Geometry& g, int n_steps, void* stream,
+                                 Pointers... pointers) {
   Plan plan;
-  out[0] = out[1] = out[2] = 0;
-  if (!make_plan(g, C, true, plan)) return 0;
+  if (!make_plan(g, C, false, plan, lanes)) return cudaErrorInvalidValue;
   cudaError_t err = ensure_setup(kernel, plan.smem, C, setup);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr[2];
+  launch_config(config, attr, items, C, true, plan.smem, stream);
+  err = cudaLaunchKernelEx(&config, kernel, pointers..., g, n_steps, plan.stages,
+                           plan.table_on_chip);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// How a kernel runs at these shapes with C blocks per item (step: a per-step
+// kernel; lanes: the lane-table encode), without a launch: make_plan's plan,
+// and in clusters how many clusters of that size the card holds at once
+// (cudaOccupancyMaxActiveClusters; more items than that run in waves); a
+// zero plan and 0 clusters where the shapes admit no plan.
+template <typename Kernel>
+static cudaError_t query_plan(Kernel kernel, Setups& setup, bool step, bool lanes, int N, int A,
+                              int block, int n_blocks, int upd_blocks, int C, Plan& plan,
+                              int& clusters) {
+  const Geometry g = make_geometry(N, A, n_blocks * block, 0, block, 0, n_blocks, n_blocks,
+                                   upd_blocks, 0, 1);
+  plan = Plan{};
+  clusters = 0;
+  if (!make_plan(g, C, step, plan, lanes)) return cudaSuccess;
+  const cudaError_t err = ensure_setup(kernel, plan.smem, C, setup);
+  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attr[2];
   launch_config(config, attr, 1, C, true, plan.smem, nullptr);
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
-  if (err != cudaSuccess) return (int)err;
+  return cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+}
+
+// The cluster step kernel's plan: out = {clusters resident at once, ring
+// stages, dynamic shared-memory bytes}, all 0 where the shapes admit none.
+static int step_plan(StepKernel kernel, Setups& setup, int N, int A, int block, int n_blocks,
+                     int upd_blocks, int C, int* out) {
+  Plan plan;
+  int clusters;
+  const cudaError_t err =
+      query_plan(kernel, setup, true, false, N, A, block, n_blocks, upd_blocks, C, plan, clusters);
   out[0] = clusters;
   out[1] = plan.stages;
   out[2] = plan.smem;
-  return 0;
+  return (int)err;
+}
+
+// A whole-encode kernel's plan: out = {clusters resident at once, ring
+// stages, whether the table share is on chip, dynamic shared-memory bytes},
+// all 0 where the shapes admit none.
+template <typename Kernel>
+static int encode_plan(Kernel kernel, Setups& setup, bool lanes, int N, int A, int block,
+                       int n_blocks, int upd_blocks, int C, int* out) {
+  Plan plan;
+  int clusters;
+  const cudaError_t err = query_plan(kernel, setup, false, lanes, N, A, block, n_blocks,
+                                     upd_blocks, C, plan, clusters);
+  out[0] = clusters;
+  out[1] = plan.stages;
+  out[2] = plan.table_on_chip;
+  out[3] = plan.smem;
+  return (int)err;
 }
 
 }  // namespace enc

@@ -42,8 +42,9 @@ _SIGNATURES = {
     "mp_boundary_update": [_P] * 4 + [_I] * 6 + [_P],
     "mp_fused_step_pipelined": [_P] * 10 + [_I] * 15 + [_P],
     "mp_fused_step_pipelined_plan": [_I] * 6 + [_P],
-    "mp_fused_encode_lane": [_P] * 10 + [_I] * 13 + [_P],
-    "probe_grid": [_P, _I, _I, _P],
+    "mp_fused_encode_lane": [_P] * 10 + [_I] * 14 + [_P],
+    "mp_fused_encode_lane_plan": [_I] * 6 + [_P],
+    "probe_grid": [_P, _I, _I, _I, _P],
     "probe_loop": [_P, _I, _I, _P],
 }
 

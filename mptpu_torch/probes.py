@@ -32,22 +32,31 @@ def probe_plain(vpu: bool, steps: int = 3200, device="cpu") -> torch.Tensor:
     return acc
 
 
-def probe_launches(kind: str, vpu: bool, steps: int = 3200, device=None) -> torch.Tensor:
+def probe_launches(kind: str, vpu: bool, steps: int = 3200, device=None,
+                   programmatic: bool = False) -> torch.Tensor:
     """Run the probe and return its tile. ``kind="grid"``: ``steps``
     launches of a one-block kernel on the current stream, each (with
-    ``vpu``) updating the tile in global memory; ``kind="fori"``: one launch
-    whose block loops ``steps`` times with the tile in registers.
+    ``vpu``) updating the tile in global memory; with ``programmatic``,
+    chained as the port's per-step kernels are (every launch after the first
+    may start under the one before it and waits inside before it reads the
+    tile). ``kind="fori"``: one launch whose block loops ``steps`` times
+    with the tile in registers (``programmatic`` does not apply).
 
     Runs on the card unless ``device`` is the CPU, where it takes
     ``probe_plain``. One call counts as one entry of
     ``kernels.LAUNCHES["probe_launches"]`` whatever the kind."""
     if kind not in ("grid", "fori"):
         raise ValueError(f"kind is 'grid' or 'fori', got {kind!r}")
+    if programmatic and kind != "grid":
+        raise ValueError("programmatic applies to kind='grid' only")
     dev = default_device(device)
     if dev.type == "cpu":
         return probe_plain(vpu, steps, dev)
     tile = torch.empty(TILE, dtype=torch.float32, device=dev)
+    args = (tile.data_ptr(), int(steps), int(bool(vpu)))
     with torch.cuda.device(dev):
-        kernels.launch("probe_grid" if kind == "grid" else "probe_loop", "probe_launches",
-                       tile.data_ptr(), int(steps), int(bool(vpu)))
+        if kind == "grid":
+            kernels.launch("probe_grid", "probe_launches", *args, int(bool(programmatic)))
+        else:
+            kernels.launch("probe_loop", "probe_launches", *args)
     return tile

@@ -20,9 +20,9 @@ item's step shared by a thread-block cluster; both take ``n_steps`` and
 then enqueue that many launches in one call, events stacked (n_steps, B);
 ``cuda_fused_encode`` runs
 all ``n_steps`` in one launch, one cluster per item looping over the steps;
-``cuda_fused_encode_lane`` does so in one block per item with a table of
-each block's first-maximum lane, so that selecting reads no map
-block. Their plain PyTorch versions (``fused_step_plain``,
+``cuda_fused_encode_lane`` does so too, with a table of each block's
+first-maximum lane beside ``bm``, so that selecting reads no map block.
+Their plain PyTorch versions (``fused_step_plain``,
 ``fused_encode_plain``, ``fused_encode_lane_plain``) sit here too; a CPU
 tensor takes them. On a CUDA tensor the wrappers launch the kernel or
 raise.
@@ -287,14 +287,16 @@ class EncodePlan(NamedTuple):
 
 @lru_cache(maxsize=None)
 def encode_plan(n_atoms: int, atom_size: int, block: int, n_blocks: int, upd_blocks: int,
-                cluster: int) -> EncodePlan:
+                cluster: int, lanes: bool = False) -> EncodePlan:
     """The whole-encode kernel's plan on the current card (CUDA's occupancy
-    query, no launch) with ``cluster`` blocks per item."""
+    query, no launch) with ``cluster`` blocks per item; with ``lanes``, the
+    lane-table encode's (``table_on_chip``: both tables)."""
+    name = "mp_fused_encode_lane_plan" if lanes else "mp_fused_encode_plan"
     out = (ctypes.c_int * 4)()
-    err = kernels.library().mp_fused_encode_plan(
+    err = getattr(kernels.library(), name)(
         n_atoms, atom_size, block, n_blocks, upd_blocks, cluster, out)
     if err != 0:
-        raise RuntimeError(f"mp_fused_encode_plan: CUDA error {err}")
+        raise RuntimeError(f"{name}: CUDA error {err}")
     return EncodePlan(out[0], out[1], bool(out[2]), out[3])
 
 
@@ -410,6 +412,23 @@ def cuda_fused_step(
                         n_steps or 1, int(programmatic), chain=n_steps or 1)
 
 
+def _check_encode_cluster(cluster, n_atoms: int) -> None:
+    if cluster is not None and (cluster not in (1, 2, 4, 8) or n_atoms % cluster):
+        raise ValueError(f"cluster must be 1, 2, 4 or 8 and divide {n_atoms} atoms")
+
+
+def _encode_cluster(cluster, fm, gram_p, geometry, lanes: bool) -> int:
+    """``cluster``, or by default ``encode_cluster_size`` over the kernel's
+    plan; raises unless the bulk copies are legal."""
+    B, N = fm.shape[:2]
+    if cluster is None:
+        shapes = (N, geometry["atom_size"], geometry["block"], geometry["n_blocks"],
+                  geometry["upd_blocks"])
+        cluster = encode_cluster_size(B, N, lambda c: encode_plan(*shapes, c, lanes).clusters)
+    check_bulk_copy_alignment(fm, gram_p, geometry["atom_size"], geometry["block"])
+    return cluster
+
+
 def cuda_fused_encode(
     fm, bm, residual, d2, gram_p, *, n_steps: int, gate_tail: bool = True,
     cluster: int | None = None, **geometry
@@ -424,22 +443,16 @@ def cuda_fused_encode(
     ``encode_cluster_size`` picks the largest cluster whose B clusters the
     card holds at once (``encode_plan``). The result does not depend on
     ``cluster``."""
-    B, N = fm.shape[:2]
-    if cluster is not None and (cluster not in (1, 2, 4, 8) or N % cluster):
-        raise ValueError(f"cluster must be 1, 2, 4 or 8 and divide {N} atoms")
+    _check_encode_cluster(cluster, fm.shape[1])
     if fm.device.type == "cpu":
         return fused_encode_plain(
             fm, bm, residual, d2, gram_p, n_steps=n_steps, gate_tail=gate_tail, **geometry
         )
-    if cluster is None:
-        shapes = (N, geometry["atom_size"], geometry["block"], geometry["n_blocks"],
-                  geometry["upd_blocks"])
-        cluster = encode_cluster_size(B, N, lambda c: encode_plan(*shapes, c).clusters)
-    check_bulk_copy_alignment(fm, gram_p, geometry["atom_size"], geometry["block"])
+    cluster = _encode_cluster(cluster, fm, gram_p, geometry, lanes=False)
     # shapes whose plan does not fit shared memory fail in the launcher,
     # which the wrapper raises on
     return _launch_step("mp_fused_encode", "cuda_fused_encode", fm, bm, residual, d2, gram_p,
-                        (n_steps, B), gate_tail, geometry, n_steps, cluster)
+                        (n_steps, fm.shape[0]), gate_tail, geometry, n_steps, cluster)
 
 
 def cuda_fused_step_pipelined(
@@ -474,7 +487,8 @@ def cuda_fused_step_pipelined(
 
 
 def cuda_fused_encode_lane(
-    fm, bm, lanes, residual, d2, gram_p, *, n_steps: int, gate_tail: bool = True, **geometry
+    fm, bm, lanes, residual, d2, gram_p, *, n_steps: int, gate_tail: bool = True,
+    cluster: int | None = None, **geometry
 ) -> StepEvents:
     """The whole ``n_steps`` greedy loop selecting from ``bm`` and the int32
     table ``lanes`` (same shape as ``bm``; first lane of each block's
@@ -482,11 +496,16 @@ def cuda_fused_encode_lane(
     ``residual``; events are (n_steps, B) and equal ``cuda_fused_encode``'s.
 
     CPU tensors take ``fused_encode_lane_plain``; CUDA tensors launch
-    ``csrc/mp_lane.cu:mp_fused_encode_lane`` once (one thread block per
-    item, residual row in shared memory as ``cuda_fused_encode``)."""
+    ``csrc/mp_lane.cu:mp_fused_encode_lane`` once: ``cuda_fused_encode``'s
+    clusters, ``cluster`` blocks per item (1, 2, 4 or 8 and a divisor of N;
+    by default ``encode_cluster_size`` over ``encode_plan(..., lanes=True)``).
+    The result does not depend on ``cluster``."""
+    _check_encode_cluster(cluster, fm.shape[1])
     if fm.device.type == "cpu":
         return fused_encode_lane_plain(
             fm, bm, lanes, residual, d2, gram_p, n_steps=n_steps, gate_tail=gate_tail, **geometry
         )
+    cluster = _encode_cluster(cluster, fm, gram_p, geometry, lanes=True)
     return _launch_step("mp_fused_encode_lane", "cuda_fused_encode_lane", fm, bm, residual, d2,
-                        gram_p, (n_steps, fm.shape[0]), gate_tail, geometry, n_steps, lanes=lanes)
+                        gram_p, (n_steps, fm.shape[0]), gate_tail, geometry, n_steps, cluster,
+                        lanes=lanes)

@@ -9,6 +9,8 @@ identical, values rtol 1e-4 / atol 1e-5, residual rtol 1e-3 / atol 1e-5;
 the gram is a convolution (rtol 1e-5 / atol 1e-5).
 """
 
+from functools import lru_cache
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -19,6 +21,7 @@ from mptpu.ops import unit_norm as j_unit_norm
 from mptpu.sparse.pallas_fused_mp import fused_step_applicable as j_applicable
 from mptpu.sparse.pallas_fused_mp import (
     pallas_fused_encode,
+    pallas_fused_encode_lane,
     pallas_fused_step,
     pallas_fused_step_pipelined,
 )
@@ -282,6 +285,24 @@ def test_probe_on_cpu_takes_the_plain_version(kind, vpu):
         probe_launches("scan", vpu, steps, device="cpu")
 
 
+@pytest.mark.parametrize("programmatic", [False, True], ids=["plain", "chained"])
+@pytest.mark.parametrize("vpu", [False, True])
+def test_probe_programmatic_on_cpu_takes_the_plain_version(vpu, programmatic):
+    """probe_launches("grid", ..., programmatic=...) returns the tile of
+    probe_plain bit for bit either way: chained launches change when a
+    launch may start, not what it computes. The in-kernel loop has no
+    launches to chain and refuses the flag."""
+    from mptpu_torch.probes import probe_launches, probe_plain
+
+    kernels.reset_launches()
+    tile = probe_launches("grid", vpu, 40, device="cpu", programmatic=programmatic)
+    assert torch.equal(tile, probe_plain(vpu, 40))
+    assert torch.equal(tile, probe_launches("fori", vpu, 40, device="cpu"))
+    assert kernels.LAUNCHES["probe_launches"] == 0
+    with pytest.raises(ValueError, match="programmatic"):
+        probe_launches("fori", vpu, 40, device="cpu", programmatic=True)
+
+
 def test_whole_loop_batch_rule_falls_back_to_per_step():
     """whole_loop needs depth + 1 <= batch <= 128 (fast_mp.py:170)."""
     sig = planted(D16, 2, 1024)
@@ -399,6 +420,61 @@ def test_fused_encode_refuses_a_bad_cluster(cluster):
     with pytest.raises(ValueError, match="cluster"):
         tsp.cuda_fused_encode(*(torch.from_numpy(a) for a in arrays), n_steps=1, cluster=cluster,
                               **geom._asdict())
+
+
+@pytest.mark.parametrize("cluster", [0, 3, 5, 16, 32])
+def test_fused_encode_lane_refuses_a_bad_cluster(cluster):
+    """The lane-table encode takes the whole encode's clusters: 1, 2, 4 or 8
+    blocks per item and a divisor of the atoms (16 here), on CPU tensors
+    too."""
+    sig = planted_lane(D16, 4)
+    state, gram_p, d2, geom = lane_state(D16, sig)
+    with pytest.raises(ValueError, match="cluster"):
+        tsp.cuda_fused_encode_lane(*state, d2, gram_p, n_steps=1, cluster=cluster,
+                                   **geom._asdict())
+
+
+@lru_cache(maxsize=None)
+def pallas_lane_reference(gate_tail: bool):
+    """mptpu's pallas_fused_encode_lane in interpret mode from the planted
+    lane state of 4 items, 9 steps: (fm, bm, residual, atoms, positions,
+    values) as numpy arrays."""
+    sig = planted_lane(D16, 4)
+    (fm, bm, lanes, res), gram_p, d2, geom = lane_state(D16, sig)
+    out = pallas_fused_encode_lane(
+        *(jnp.asarray(t.numpy()) for t in (fm, bm, lanes, res, d2, gram_p)), n_steps=9, depth=2,
+        gate_tail=gate_tail, interpret=True, **geom._asdict())
+    return tuple(np.asarray(x) for x in out)
+
+
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8])
+@pytest.mark.parametrize("gate_tail", [True, False], ids=["gated", "ungated"])
+def test_fused_encode_lane_wrapper_matches_pallas_kernel(cluster, gate_tail):
+    """cuda_fused_encode_lane on CPU tensors (its plain version) against
+    mptpu's pallas_fused_encode_lane in interpret mode on the same initial
+    state, at every cluster the wrapper takes: events identical, values
+    rtol 1e-4 / atol 1e-5, residual rtol 1e-3 / atol 1e-5, map and table
+    (whose tails are sums taken in another order) rtol 1e-4 / atol 1e-4; the
+    result does not depend on `cluster`, and the lane table describes the
+    final map."""
+    jf, jb, jr, ja, jp, jv = pallas_lane_reference(gate_tail)
+    sig = planted_lane(D16, 4)
+    state, gram_p, d2, geom = lane_state(D16, sig)
+    kernels.reset_launches()
+    ev = tsp.cuda_fused_encode_lane(*state, d2, gram_p, n_steps=9, gate_tail=gate_tail,
+                                    cluster=cluster, **geom._asdict())
+    fm, bm, lanes, res = state
+    assert (ev.positions > 1024 - 128).any()
+    np.testing.assert_array_equal(ev.atoms.numpy(), ja)
+    np.testing.assert_array_equal(ev.positions.numpy(), jp)
+    np.testing.assert_allclose(ev.values.numpy(), jv, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(res.numpy(), jr, rtol=1e-3, atol=1e-5)
+    np.testing.assert_allclose(fm.numpy(), jf, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(bm.numpy(), jb, rtol=1e-4, atol=1e-4)
+    blocks = fm.reshape(4, 16, geom.n_blocks, 128)
+    assert torch.equal(lanes[..., : geom.n_blocks].long(), blocks.argmax(-1))
+    assert not lanes[..., geom.n_blocks :].any()
+    assert kernels.LAUNCHES["cuda_fused_encode_lane"] == 0
 
 
 def test_fused_wrappers_refuse_shapes_that_fail_the_gate():

@@ -4,6 +4,7 @@ is launched."""
 
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -19,7 +20,8 @@ from mptpu_torch import convert, kernels
 from mptpu_torch.device import default_device, no_tf32, parity_mode
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "mptpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = (sorted((REPO / "mptpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+              + sorted((REPO / "tools").glob("*.py")))
 
 
 def imported_modules(path):
@@ -124,6 +126,28 @@ def test_importing_the_port_needs_no_nvcc(tmp_path):
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "True"
     assert "__init__" in mptpu_torch.__file__
+
+
+def extern_c_arities():
+    """{name: parameter count} of every extern "C" function in the port's
+    CUDA sources."""
+    found = {}
+    for src in sorted((REPO / "mptpu_torch" / "csrc").glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        for m in re.finditer(r'extern "C"\s+int\s+(\w+)\s*\(([^)]*)\)', text):
+            params = [p for p in m.group(2).split(",") if p.strip()]
+            found[m.group(1)] = len(params)
+    return found
+
+
+@pytest.mark.parametrize("name", sorted(kernels._SIGNATURES))
+def test_c_signatures_match_the_sources(name):
+    """Each entry of kernels._SIGNATURES has as many argument types as its
+    extern "C" function has parameters (a missing one would cut a pointer or
+    shift every argument after it on the card), and no C entry lacks one."""
+    arities = extern_c_arities()
+    assert set(arities) == set(kernels._SIGNATURES)
+    assert len(kernels._SIGNATURES[name]) == arities[name]
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
