@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``mptpu_torch``) on one CUDA card and
-check it: the greedy matching-pursuit encoder at the bench configuration
-and multiband dictionary learning at its full width.
+check it: the greedy matching-pursuit encoder at the bench configuration,
+multiband dictionary learning at its full width, and the rest of the
+sparse layer (OMP refit, feature-map loss, top-k, quantize, sharded MP).
 
     python3 chip_smoke.py
 
@@ -14,8 +15,9 @@ Phases, each printing lines (any failure exits non-zero):
    samples, block 128) on a planted signal with decisive maxima; the
    cluster step kernel also against the one-block step kernel bit for bit
    (1, 3 and 32 items, clusters of 1, 2, 4, 8 and 16, with and without the
-   tail gate, at 2,048-tap atoms, and at the largest and smallest multiband
-   band), both step kernels' chains of ``n_steps`` launches against the same
+   tail gate, at 2,048-tap atoms, at the block of 512 at which
+   ``dictionary_learning_step`` encodes, and at the largest and smallest
+   multiband band), both step kernels' chains of ``n_steps`` launches against the same
    steps launched one by one, bit for bit, the whole-encode kernel at every
    cluster size the card admits against the one-block step kernel looped,
    bit for bit, the lane-table encode at every cluster size, with and
@@ -24,8 +26,9 @@ Phases, each printing lines (any failure exits non-zero):
    (plain launches, launches chained under programmatic stream
    serialization, one in-kernel loop) against its plain version;
 3. the paths, each with the launch counts set to 0 just before and read
-   just after: the bench configuration through ``sparse_code_fast``
-   (``bench.py``'s inputs and settings; whole-encode kernel, timed), then
+   just after (phase 4 alike): the bench configuration through
+   ``sparse_code_fast`` (``bench.py``'s inputs and settings; whole-encode
+   kernel, timed), then
    the same through the lane-table encode (timed), and the two kernels
    timed in turns on copies of the same fresh state; four
    more paths of ``sparse_code_fast`` (cluster step kernel, one-block step
@@ -37,14 +40,28 @@ Phases, each printing lines (any failure exits non-zero):
    decode_global``, timed, recon SNR rising after learning; the launch
    probe, each kind timed by the host clock and by CUDA events behind a
    device spin long enough that all its launches are queued first;
-4. each kernel's time beside its plain version's, its bound and, for the
+4. the sparse layer at the bench width on the planted signal, one line a
+   part, CUDA events beside the host clock: ``omp_refit`` after the bench
+   encode (one whole-encode kernel launch; events kept, waveform error not
+   above the greedy one's, values beside a float64 numpy solve);
+   ``sparse_feature_map`` (its non-zeros the naive coder's events) and
+   ``sparse_coding_loss`` forward and backward, the backward's peak memory
+   under 16 GiB, and at a small shape the card's loss and gradient against
+   the CPU's; ``SparseCodingLoss`` with two learning calls of 100 cluster
+   step kernel launches each and a third with none; the STE, top-k and
+   quantize functions on the card against the CPU, forward and gradient;
+   ``sharded_sparse_code`` on a process group of one NCCL rank, its events
+   the naive coder's; after the counted run, the learning path's encode
+   (one chain of 100 cluster step kernel launches at block 512) against the
+   naive coder;
+5. each kernel's time beside its plain version's, its bound and, for the
    boundary kernel, one ``torch.matmul`` computing the same product; the two
    step kernels per step from a chain of launches, with and without
    programmatic stream serialization; a chain of one encode's steps at each
    multiband band beside the whole-encode kernel doing the same steps in one
    launch; the two whole-encode kernels and the cluster step kernel by
    cluster size, with the clusters the card holds at once beside each;
-5. a ``kernels`` JSON line, then the result line
+6. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It needs CUDA and the ``mptpu_torch`` package beside it, and exits with
@@ -73,6 +90,8 @@ MULTIBAND = dict(n_samples=2**15, steps=64, n_atoms=512, atom_size=128, batch=4,
 LONG_ATOMS = dict(batch=2, n_atoms=16, atom_size=2048, n_samples=16384, n_steps=4, block=128,
                   clip_taps=1600)
 PROBE_STEPS = 3200   # scripts/grid_overhead_probe.py:53
+# the sparse layer's loss at a small shape, on the card against the CPU
+SMALL_LOSS = dict(batch=2, n_atoms=16, atom_size=128, n_samples=1024, n_steps=8)
 # the probe's kinds: label -> (kind, programmatic)
 PROBE_KINDS = {"grid": ("grid", False), "grid chained": ("grid", True), "fori": ("fori", False)}
 HOLD_CYCLES = 20_000_000   # about 10 ms of device spinning ahead of a timed run
@@ -142,6 +161,13 @@ def bench_inputs(cfg):
     return d, sig
 
 
+def learning_block(atom_size: int) -> int:
+    """The block at which ``dictionary_learning_step`` (and so
+    ``SparseCodingLoss`` and a multiband band) encodes
+    (mptpu_torch/sparse/matching_pursuit.py:193)."""
+    return min(512, atom_size) if atom_size >= 128 else 512
+
+
 def max_err(pairs) -> float:
     return max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
 
@@ -164,30 +190,39 @@ def assert_events(name, a, b, with_values=True):
         assert_close(f"{name} values", a[2].cpu(), b[2].cpu(), VALUE_TOL)
 
 
-def timed(fn, reps: int, dev, warmup: bool = True) -> float:
+def timed(fn, reps: int, dev, warmup: bool = True, host: bool = False):
     """Mean ms of ``fn`` over ``reps`` calls: between CUDA events on a
     card, by the host clock on the CPU (where the harness is rehearsed).
     On a card the stream is first held busy for a few milliseconds, so that
     the calls are queued before the first one starts and the events bracket
-    device time back to back, not the host's pace of launching."""
+    device time back to back, not the host's pace of launching.
+
+    ``host``: instead (the last call's result, ms between CUDA events or
+    None off a card, ms by the host clock), both clocks per call over the
+    same calls, with no hold ahead of them: a call's host work (the Python,
+    the launches, any synchronize inside it) is part of what it costs."""
     import torch
 
     if warmup:
         fn()
-    if dev.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - t0) * 1e3 / reps
-    torch.cuda.synchronize(dev)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(HOLD_CYCLES)
-    start.record()
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if not host:
+            torch.cuda._sleep(HOLD_CYCLES)
+        start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize(dev)
-    return start.elapsed_time(end) / reps
+        out = fn()
+    if on_card:
+        end.record()
+        torch.cuda.synchronize(dev)
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    device_ms = start.elapsed_time(end) / reps if on_card else None
+    if host:
+        return out, device_ms, host_ms
+    return host_ms if device_ms is None else device_ms
 
 
 def step_traffic(cfg, geom, positions, chain: bool, lane_table: bool = False):
@@ -377,7 +412,7 @@ def multiband_phase(dev, mb, peaks, sync, records):
 
     sizes, n, steps, batch = mb["sizes"], mb["n_samples"], mb["steps"], mb["batch"]
     N, A = mb["n_atoms"], mb["atom_size"]
-    block = min(512, A) if A >= 128 else 512   # the band encoder's choice
+    block = learning_block(A)   # the band encoder's choice
     on_card = dev.type == "cuda"
     model = MultibandDictionaryLearning(
         [BandSpec(s, N, A, signal_samples=n, is_lowest_band=(s == sizes[0]), device=dev)
@@ -677,8 +712,297 @@ def probe_phase(dev, peaks, sync, records):
     print(f"probe launches {launches}")
 
 
+def ms_text(device_ms, host_ms) -> str:
+    dev = "not measured" if device_ms is None else f"{device_ms:.3f} ms"
+    return f"{dev} (CUDA events), {host_ms:.3f} ms (host clock)"
+
+
+def on_both(fn, arrays, seed, dev):
+    """``fn`` on CUDA tensors and on CPU tensors made from the same numpy
+    ``arrays``: (max abs err of the float outputs, of the gradients of
+    ``sum(out * w)`` for a seeded ``w`` into the first array). Integer
+    outputs must be equal; float outputs and gradients within VALUE_TOL
+    (the gradients' atol scaled by their largest magnitude)."""
+    import torch
+
+    def call(device):
+        ins = [torch.from_numpy(a).to(device) for a in arrays]
+        ins[0].requires_grad_()
+        outs = fn(*ins)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        floats = [o for o in outs if o.is_floating_point()]
+        gen = torch.Generator().manual_seed(seed)
+        loss = sum((o * torch.randn(o.shape, generator=gen).to(device)).sum() for o in floats)
+        (g,) = torch.autograd.grad(loss, ins[0])
+        return outs, g
+
+    (o_dev, g_dev), (o_cpu, g_cpu) = call(dev), call(torch.device("cpu"))
+    err = 0.0
+    for i, (a, b) in enumerate(zip(o_dev, o_cpu)):
+        a = a.detach().cpu()
+        b = b.detach()
+        if a.is_floating_point():
+            assert_close(f"output {i}", a, b, VALUE_TOL)
+            err = max(err, max_err([(a, b)]))
+        elif not torch.equal(a, b):
+            fail(f"output {i}: {int((a != b).sum())} integer entries differ")
+    g_dev = g_dev.cpu()
+    scale = float(g_cpu.abs().max())
+    assert_close("gradient", g_dev, g_cpu, dict(rtol=VALUE_TOL["rtol"],
+                                                atol=VALUE_TOL["atol"] * max(scale, 1e-30)))
+    return err, max_err([(g_dev, g_cpu)])
+
+
+def sparse_layer_phase(dev, cfg, records):
+    """The sparse layer beside the encoder, launch counts set to 0 first
+    and read last: (1) ``omp_refit`` after the bench encode through the
+    whole-encode kernel; (2) ``sparse_feature_map`` and
+    ``sparse_coding_loss``, forward and backward, with the backward's peak
+    memory; (3) ``SparseCodingLoss`` learning through the cluster step
+    kernel; (4) the STE, top-k and quantize functions on the card against
+    the CPU; (5) ``sharded_sparse_code`` on a process group of one rank.
+    Then, its launches not counted, (3)'s encode at the planted signal
+    against the naive coder."""
+    import tempfile
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from mptpu_torch import kernels
+    from mptpu_torch.ops import sparse_softmax
+    from mptpu_torch.parallel import make_mesh, sharded_sparse_code
+    from mptpu_torch.sparse import (
+        QuantizedResonanceMixture, SparseCodingLoss, event_tracks, hard_choice, omp_refit,
+        reconstruct_from_events, sparse_code, sparse_code_fast, sparse_coding_loss,
+        sparse_feature_map, sparsify, sparsify2, sparsify_vectors, to_key_points,
+    )
+
+    B, N, A, n, S = (cfg[k] for k in ("batch", "n_atoms", "atom_size", "n_samples", "n_steps"))
+    on_card = dev.type == "cuda"
+    d_np, sig_np = planted_signal(cfg)
+    d = torch.from_numpy(d_np).to(dev)
+    sig = torch.from_numpy(sig_np).to(dev)
+    rng = np.random.default_rng(5)
+    rms = float(np.sqrt((sig_np.astype(np.float64) ** 2).mean()))
+    recon = sig + torch.from_numpy((0.01 * rms * rng.standard_normal(sig_np.shape))
+                                   .astype(np.float32)).to(dev)
+    def once(fn):
+        """(result, CUDA-event ms or None, host ms) of one call of ``fn``."""
+        return timed(fn, 1, dev, warmup=False, host=True)
+
+    kernels.reset_launches()
+    t_phase = time.perf_counter()
+
+    # 1. omp_refit after the bench encode (the whole-encode kernel)
+    before = kernels.LAUNCHES["cuda_fused_encode"]
+    code, enc_dev, enc_host = once(lambda: sparse_code_fast(
+        sig, d, n_steps=S, block=cfg["block"], fused=True, whole_loop=True, depth=cfg["depth"]))
+    if kernels.LAUNCHES["cuda_fused_encode"] - before != int(on_card):
+        fail("sparse layer: the bench encode before omp_refit did not launch the whole-encode "
+             "kernel once")
+    _, first_dev, first_host = once(lambda: omp_refit(sig, code, d, ridge=1e-6))
+    refit, ref_dev, ref_host = once(lambda: omp_refit(sig, code, d, ridge=1e-6))
+    if not (torch.equal(refit.atom_indices, code.atom_indices)
+            and torch.equal(refit.positions, code.positions)):
+        fail("omp_refit changed atoms or positions")
+    g_err = float(((sig - reconstruct_from_events(code, d)).double() ** 2).sum())
+    r_recon = reconstruct_from_events(refit, d)
+    r_err = float(((sig - r_recon).double() ** 2).sum())
+    if not r_err <= g_err * (1 + 1e-5):
+        fail(f"omp_refit: waveform error {r_err:.6e} above the greedy {g_err:.6e}")
+    assert_close("omp_refit residual", refit.residual, sig - r_recon, RESIDUAL_TOL)
+    # the same normal equations solved in float64 by numpy
+    tracks = event_tracks(code, d, n).double()
+    gram = torch.einsum("ben,bfn->bef", tracks, tracks)
+    rhs = torch.einsum("ben,bn->be", tracks, sig[:, 0].double())
+    lam = 1e-6 * (torch.diagonal(gram, dim1=-2, dim2=-1).sum(-1)[:, None, None] / S + 1e-12)
+    want = np.linalg.solve((gram + lam * torch.eye(S, dtype=gram.dtype, device=dev)).cpu().numpy(),
+                           rhs.cpu().numpy()[..., None])[..., 0].T
+    got = refit.values.double().cpu().numpy()
+    rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-12)))
+    rel_norm = float(np.abs(got - want).max() / np.abs(want).max())
+    recon64 = torch.einsum("be,ben->bn", torch.from_numpy(want.T.copy()).to(dev), tracks)
+    err64 = float(((sig[:, 0].double() - recon64) ** 2).sum())
+    # an event picked twice (same item, atom and position) gives two equal
+    # tracks: only their sum is determined, the split follows the ridge
+    keys = (torch.arange(B, device=dev) * N + code.atom_indices.long()) * n + code.positions.long()
+    repeats = S * B - int(torch.unique(keys).numel())
+    del tracks, gram, rhs, recon64
+    print(f"sparse layer 1, omp_refit after the bench encode ({B} items x {S} steps, planted): "
+          f"encode {ms_text(enc_dev, enc_host)}, refit {ms_text(ref_dev, ref_host)} (first call "
+          f"{ms_text(first_dev, first_host)}); events kept, waveform error {r_err:.6e} against "
+          f"the greedy {g_err:.6e} (ratio {r_err / g_err:.6f}), residual = signal - "
+          f"reconstruction; values against a float64 numpy solve of the same equations: largest "
+          f"relative difference {rel:.3e}, largest difference over the largest value "
+          f"{rel_norm:.3e}, the float64 values' waveform error {err64:.6e}; {repeats} of "
+          f"{S * B} events repeat an earlier (item, atom, position)")
+
+    # 2. the feature map and the loss at the bench width, forward and backward
+    naive = sparse_code(sig, d, n_steps=S)
+    with torch.no_grad():
+        fm, fm_dev, fm_host = once(lambda: sparse_feature_map(sig, d, n_steps=S))
+    # an event picked again at the same (item, atom, position) adds to it
+    picked = torch.zeros_like(fm).index_put_(
+        (torch.arange(B, device=dev).expand(S, B), naive.atom_indices.long(),
+         naive.positions.long()), naive.values, accumulate=True)
+    if not torch.equal(fm != 0, picked != 0):
+        fail(f"sparse_feature_map: {int(torch.count_nonzero(fm))} non-zeros, not the "
+             f"{int(torch.count_nonzero(picked))} events of sparse_code")
+    assert_close("sparse_feature_map values", fm, picked, VALUE_TOL)
+    del fm, picked
+    # a small shape on the card against the port on the CPU (and the warm-up
+    # of the timed call below: checkpoint's first call takes seconds)
+    sd_np, ss_np = planted_signal(SMALL_LOSS)
+    sr_np = ss_np + (0.01 * np.sqrt((ss_np**2).mean())
+                     * rng.standard_normal(ss_np.shape)).astype(np.float32)
+    small = []
+    for device in (dev, torch.device("cpu")):
+        r_s = torch.from_numpy(sr_np).to(device).requires_grad_()
+        l_s = sparse_coding_loss(r_s, torch.from_numpy(ss_np).to(device),
+                                 torch.from_numpy(sd_np).to(device), n_steps=SMALL_LOSS["n_steps"])
+        small.append((l_s.detach().cpu(), torch.autograd.grad(l_s, r_s)[0].cpu()))
+    assert_close("small sparse_coding_loss, card against CPU", small[0][0], small[1][0], VALUE_TOL)
+    scale = float(small[1][1].abs().max())
+    assert_close("small sparse_coding_loss gradient, card against CPU", small[0][1], small[1][1],
+                 dict(rtol=1e-3, atol=1e-5 * scale))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev) if on_card else 0
+    rt = recon.clone().requires_grad_()
+    loss, fwd_dev, fwd_host = once(lambda: sparse_coding_loss(rt, sig, d, n_steps=S))
+    fwd_peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    (g,), bwd_dev, bwd_host = once(lambda: torch.autograd.grad(loss, rt))
+    bwd_peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    if not (torch.isfinite(loss) and torch.isfinite(g).all() and bool((g != 0).any())):
+        fail("sparse_coding_loss: non-finite loss or gradient, or a zero gradient")
+    if bwd_peak >= 16 * 2**30:
+        fail(f"sparse_coding_loss backward: peak {bwd_peak / 2**30:.2f} GiB, not under 16 GiB")
+    memory = (f"peak memory {fwd_peak / 2**30:.3f} GiB over the forward, {bwd_peak / 2**30:.3f} "
+              f"GiB over the backward (from {base / 2**30:.3f} GiB before, limit 16 GiB)"
+              if on_card else "peak memory not measured")
+    print(f"sparse layer 2, sparse_feature_map and sparse_coding_loss ({B} items x {N} atoms x "
+          f"{n} samples, {S} steps; recon = planted + 1% noise): map {ms_text(fm_dev, fm_host)}, "
+          f"its non-zeros the events of sparse_code; loss {loss.item():.6e}, forward "
+          f"{ms_text(fwd_dev, fwd_host)}, backward {ms_text(bwd_dev, bwd_host)}; {memory}; "
+          f"gradient |max| "
+          f"{float(g.abs().max()):.3e}; at {SMALL_LOSS['n_atoms']} x {SMALL_LOSS['atom_size']}, "
+          f"{SMALL_LOSS['n_samples']} samples, batch {SMALL_LOSS['batch']}: loss and gradient "
+          f"on the card within {max_err([(small[0][0], small[1][0])]):.3e} "
+          f"and {max_err([(small[0][1], small[1][1])]):.3e} of the CPU")
+    del rt, loss, g
+
+    # 3. SparseCodingLoss: two learning calls through the cluster step kernel
+    scl = SparseCodingLoss(N, A, S, learning_steps=2, generator=torch.Generator().manual_seed(0),
+                           device=dev)
+    per_call = []
+    for call in range(3):
+        before = kernels.LAUNCHES["cuda_fused_step_pipelined"]
+        with torch.no_grad():
+            value, c_dev, c_host = once(lambda: scl(recon, sig))
+        got = kernels.LAUNCHES["cuda_fused_step_pipelined"] - before
+        want = S if call < 2 and on_card else 0
+        if got != want:
+            fail(f"SparseCodingLoss call {call + 1}: {got} cluster step kernel launches, "
+                 f"expected {want}")
+        norms = scl.d.norm(dim=-1)
+        if not (torch.isfinite(value) and torch.allclose(norms, torch.ones_like(norms), atol=1e-4)):
+            fail(f"SparseCodingLoss call {call + 1}: loss not finite or atoms not unit norm")
+        per_call.append(f"call {call + 1}: loss {float(value):.6e}, {got} launches, "
+                        f"{ms_text(c_dev, c_host)}")
+    print(f"sparse layer 3, SparseCodingLoss({N}, {A}, {S}, learning_steps=2): "
+          + "; ".join(per_call))
+    del scl
+
+    # 4. STE, top-k and quantize on the card against the CPU
+    def normal(shape, seed):
+        return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+    x = normal((8, 512, 1024), 11)
+    quant = {where.type: QuantizedResonanceMixture(512, 16, 2**15, 22050,
+                                                   generator=torch.Generator().manual_seed(3),
+                                                   device=where)
+             for where in (dev, torch.device("cpu"))}
+    checks = [
+        ("sparsify k=64", lambda v: sparsify(v, 64), [x]),
+        ("sparsify k=64 soft", lambda v: sparsify(v, 64, soft=True), [x]),
+        ("sparsify k=64 sharpen", lambda v: sparsify(v, 64, sharpen=True), [x]),
+        ("sparsify2 k=64", lambda v: sparsify2(v, 64), [x]),
+        ("sparsify_vectors k=64", lambda v, a: sparsify_vectors(v, a, 64), [x, normal((8, 1024), 12)]),
+        ("to_key_points k=64", lambda v: to_key_points(v, 64), [np.abs(normal((8, 256, 256), 13))]),
+        ("sparse_softmax", sparse_softmax, [x]),
+    ] + [
+        (f"hard_choice {kind}", lambda v, kind=kind: hard_choice(v, kind), [x])
+        for kind in ("sparse_softmax", "identity", "softmax", "relu")
+    ] + [
+        ("QuantizedResonanceMixture(512, 16, 2**15, 22050)",
+         lambda v: quant[v.device.type](v, return_code=True), [normal((4, 16, 512), 14)]),
+    ]
+    errs = []
+    for name, fn, arrays in checks:
+        err, g_err = on_both(fn, arrays, 21, dev)
+        errs.append(f"{name} {err:.1e}/{g_err:.1e}")
+    sel = torch.from_numpy(x).to(dev)
+    gumbel = hard_choice(sel, "gumbel_softmax",
+                         generator=torch.Generator(device=dev).manual_seed(4))
+    if not (bool((torch.count_nonzero(gumbel, dim=-1) == 1).all())
+            and torch.allclose(gumbel.sum(-1), torch.ones_like(gumbel.sum(-1)))):
+        fail("hard_choice gumbel_softmax: not one-hot")
+    print("sparse layer 4, on the card against the CPU, max abs err of outputs / gradients: "
+          + ", ".join(errs) + "; hard_choice gumbel_softmax one-hot")
+    del quant, sel, gumbel
+
+    # 5. sharded_sparse_code on a process group of one rank
+    backend = "nccl" if on_card else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                                world_size=1, timeout=timedelta(seconds=60))
+        try:
+            mesh = make_mesh((1,), ("dict",), device=dev)
+            sharded_sparse_code(mesh, sig, d, n_steps=2)   # the communicator's set-up
+            sharded, sh_dev, sh_host = once(lambda: sharded_sparse_code(mesh, sig, d, n_steps=S))
+        finally:
+            dist.destroy_process_group()
+    assert_events("sharded_sparse_code vs sparse_code", sharded, naive)
+    assert_close("sharded_sparse_code residual", sharded.residual, naive.residual, RESIDUAL_TOL)
+    _, nv_dev, nv_host = once(lambda: sparse_code(sig, d, n_steps=S))
+    print(f"sparse layer 5, sharded_sparse_code on one {backend} rank, mesh (dict=1), {B} items x "
+          f"{N} atoms, {S} steps: {ms_text(sh_dev, sh_host)}; events equal to sparse_code's "
+          f"({ms_text(nv_dev, nv_host)})")
+
+    launches = dict(kernels.LAUNCHES)
+    want = {k: 0 for k in launches}
+    if on_card:
+        want.update(cuda_fused_encode=1, cuda_fused_step_pipelined=2 * S)
+    if launches != want:
+        fail(f"sparse layer: launches {launches}, expected {want}")
+    records["cuda_fused_encode"]["launches_sparse_layer"] = launches["cuda_fused_encode"]
+    records["cuda_fused_step_pipelined"]["launches_sparse_layer"] = (
+        launches["cuda_fused_step_pipelined"])
+    print(f"sparse layer launches {launches}; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s (host clock)")
+
+    # part 3's encode outside the counted run: sparse_code_fast as
+    # dictionary_learning_step calls it (one chain of S cluster step kernel
+    # launches at the learning block) against the naive coder
+    before = kernels.LAUNCHES["cuda_fused_step_pipelined"]
+    learned = sparse_code_fast(sig, d, n_steps=S, block=learning_block(A), fused=on_card,
+                               block_argmax=on_card)
+    if kernels.LAUNCHES["cuda_fused_step_pipelined"] - before != (S if on_card else 0):
+        fail("the learning path's encode did not run through the cluster step kernel")
+    assert_events("the learning path's encode vs sparse_code", learned, naive)
+    assert_close("the learning path's encode residual", learned.residual, naive.residual,
+                 RESIDUAL_TOL)
+    print(f"check the learning path's encode (block {learning_block(A)}, {S} steps, {B} items): "
+          f"events equal to sparse_code's, values max abs err "
+          f"{max_err([(learned.values, naive.values)]):.3e}, residual max abs err "
+          f"{max_err([(learned.residual, naive.residual)]):.3e}")
+
+
 def run(dev, cfg, peaks, sync, mb=MULTIBAND):
-    """Phases 2-4 on device ``dev``; returns the kernels' records."""
+    """Phases 2-5 on device ``dev``; returns the kernels' records."""
     import torch
     import torch.nn.functional as F
 
@@ -775,6 +1099,18 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
     print(f"check the step kernels at {LONG_ATOMS['n_atoms']} atoms x {LONG_ATOMS['atom_size']} "
           f"taps, {LONG_ATOMS['batch']} items x {LONG_ATOMS['n_steps']} steps ({n_clip} clipped): "
           f"as above, max abs err vs plain {err:.3e}")
+    del lfm, lbm, lres
+    # the same at the learning path's geometry: dictionary_learning_step
+    # encodes at its own block (512 at 512 taps, four 128-float chunks a block)
+    lgeom = fast_geometry(n, A, learning_block(A))
+    lfm, lbm, lres = encode_state(sig_pl, d2, lgeom)
+    lbm = F.pad(lbm, (0, lgeom.nb_pad - lgeom.n_blocks), value=-3e38)
+    err, n_clip = cluster_step_check(f"cluster step, block {lgeom.block}", (lfm, lbm, lres), d2,
+                                     gram_p, lgeom._asdict(), 4, sync)
+    worst = max(worst, err)
+    print(f"check the step kernels at the learning path's block {lgeom.block}, {B} items x 4 "
+          f"steps ({n_clip} clipped, map {tuple(lfm.shape)}): as above, max abs err vs plain "
+          f"{err:.3e}")
     del lfm, lbm, lres
     records["cuda_fused_step_pipelined"] = dict(max_abs_err=worst)
 
@@ -1070,7 +1406,9 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
 
     probe_phase(dev, peaks, sync, records)
 
-    # ---- phase 4: per-kernel times
+    sparse_layer_phase(dev, cfg, records)
+
+    # ---- phase 5: per-kernel times
     fm, bm, res = encode_state(sig_b, d2_b, geom)
     windows = res[:, tail_idx].contiguous()
     k3_ms = timed(lambda: cuda_boundary_update(fm, bm, windows, d2_b, geom.tail_start, block), 20, dev)

@@ -2,7 +2,8 @@
 
 Anything ``np.asarray`` accepts (a JAX array, a numpy array, a nested
 list) converts. For the matching-pursuit encoder the dictionary is the
-whole model; for the multiband codec it is one dictionary per band.
+whole model; for the multiband codec it is one dictionary per band; the
+sparsity modules take a flax parameter tree of ``Dense`` layers.
 """
 
 from __future__ import annotations
@@ -51,3 +52,28 @@ def band_dicts_from_jax(model_or_dict, device=None) -> dict:
     """
     dicts = getattr(model_or_dict, "band_dicts", model_or_dict)
     return {int(size): dictionary_from_jax(d, device) for size, d in dicts.items()}
+
+
+def sparsity_from_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
+    """Copy the flax parameters of ``mptpu``'s ``ElementwiseSparsity`` or
+    ``VectorwiseSparsity`` (``module.init``'s ``{"params": {"Dense_i":
+    {"kernel", "bias"}}}``, or its ``"params"`` entry) into the port's
+    module of the same shape, in place, and return it. A flax ``kernel`` is
+    (in, out) and an ``nn.Linear`` weight (out, in): it is transposed."""
+    params = variables.get("params", variables)
+    layers = {name for name, m in module.named_children() if isinstance(m, torch.nn.Linear)}
+    if set(params) != layers:
+        raise ValueError(f"flax layers {sorted(params)} against the module's {sorted(layers)}")
+    with torch.no_grad():
+        for name, leaf in params.items():
+            linear = getattr(module, name)
+            weight = np.asarray(leaf["kernel"], dtype=np.float32).T
+            bias = np.array(leaf["bias"], dtype=np.float32)
+            if weight.shape != tuple(linear.weight.shape) or bias.shape != tuple(linear.bias.shape):
+                raise ValueError(
+                    f"{name}: kernel {weight.T.shape}, bias {bias.shape} against the module's "
+                    f"weight {tuple(linear.weight.shape)} (transposed), bias {tuple(linear.bias.shape)}"
+                )
+            linear.weight.copy_(torch.from_numpy(weight.copy()))
+            linear.bias.copy_(torch.from_numpy(bias))
+    return module

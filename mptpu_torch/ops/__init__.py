@@ -1,4 +1,5 @@
-"""L0 ops of the matching-pursuit path (counterpart of ``mptpu.ops``)."""
+"""L0 ops of the sparse layer (counterpart of ``mptpu.ops``; only the
+ported names)."""
 
 from .fft import n_fft_coeffs, next_pow2, rfft, irfft, fft_convolve, simple_fft_convolve
 from .correlation import mp_correlate, torch_style_conv
@@ -9,6 +10,16 @@ from .decompose import (
     fft_frequency_recompose,
     fft_resample,
 )
+from .ste import (
+    straight_through,
+    leaky_relu_ste,
+    sparse_softmax,
+    soft_dirac,
+    soft_clamp,
+    step_func,
+    hard_softmax,
+)
+from .refit import refit_gains
 
 __all__ = [
     "n_fft_coeffs",
@@ -27,4 +38,12 @@ __all__ = [
     "fft_frequency_decompose",
     "fft_frequency_recompose",
     "fft_resample",
+    "straight_through",
+    "leaky_relu_ste",
+    "sparse_softmax",
+    "soft_dirac",
+    "soft_clamp",
+    "step_func",
+    "hard_softmax",
+    "refit_gains",
 ]

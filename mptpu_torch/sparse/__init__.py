@@ -1,12 +1,37 @@
-"""Greedy matching pursuit, naive and fast, with its CUDA kernels
-(counterpart of ``mptpu.sparse``; only the ported names)."""
+"""The L1 sparse-coding layer (counterpart of ``mptpu.sparse``): the top-k
+family, greedy matching pursuit, naive and fast, with its CUDA kernels,
+dictionary learning, the OMP refit, quantized selection and multiband
+dictionary learning."""
 
+from .topk import (
+    SparsifyResult,
+    sparsify,
+    sparsify2,
+    sparsify_vectors,
+    encourage_sparsity_loss,
+    to_key_points,
+    ElementwiseSparsity,
+    VectorwiseSparsity,
+)
 from .matching_pursuit import (
     SparseCodeResult,
     sparse_code,
     scatter_events,
     reconstruct_from_events,
     dictionary_learning_step,
+    sparse_feature_map,
+    sparse_coding_loss,
+    flatten_atom_dict,
+    SparseCodingLoss,
+    AtomPlacement,
+)
+from .omp_refit import omp_refit, event_tracks
+from .quantize import (
+    hard_choice,
+    select_items,
+    set_selection_leak,
+    set_selection_floor,
+    QuantizedResonanceMixture,
 )
 from .multiband import BandSpec, MultibandDictionaryLearning
 from .fast_mp import sparse_code_fast, dictionary_gram, fast_geometry, encode_state
@@ -26,11 +51,31 @@ from .cuda_fused_mp import (
 from .cuda_mp import cuda_boundary_update, boundary_update_plain
 
 __all__ = [
+    "SparsifyResult",
+    "sparsify",
+    "sparsify2",
+    "sparsify_vectors",
+    "encourage_sparsity_loss",
+    "to_key_points",
+    "ElementwiseSparsity",
+    "VectorwiseSparsity",
     "SparseCodeResult",
     "sparse_code",
     "scatter_events",
     "reconstruct_from_events",
     "dictionary_learning_step",
+    "sparse_feature_map",
+    "sparse_coding_loss",
+    "flatten_atom_dict",
+    "SparseCodingLoss",
+    "AtomPlacement",
+    "omp_refit",
+    "event_tracks",
+    "hard_choice",
+    "select_items",
+    "set_selection_leak",
+    "set_selection_floor",
+    "QuantizedResonanceMixture",
     "BandSpec",
     "MultibandDictionaryLearning",
     "sparse_code_fast",

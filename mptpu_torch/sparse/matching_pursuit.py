@@ -4,6 +4,10 @@
 Events come back as dense ``(n_steps, batch)`` arrays of (atom index,
 position, value). Atoms that run past the signal end are clipped: energy
 scattered past the end is dropped and reads past the end see zeros.
+
+Beside the coder: the dense feature map of the picked values
+(differentiable in them), the loss between two such maps with its
+stateful form that learns its own dictionary, and ``AtomPlacement``.
 """
 
 from __future__ import annotations
@@ -12,7 +16,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..device import default_device
 from ..ops.correlation import mp_correlate
 from ..ops.norms import unit_norm
 
@@ -222,3 +228,164 @@ def dictionary_learning_step(
 
     d_new = _normalize_dict(dd)
     return d_new if d.ndim == 3 else d_new[:, 0, :]
+
+
+def sparse_feature_map(
+    signal: torch.Tensor,
+    d: torch.Tensor,
+    n_steps: int = 100,
+    approx=None,
+    use_fft: bool = False,
+    return_residual: bool = False,
+):
+    """Dense (batch, n_atoms, n_samples) map of the values the naive greedy
+    loop picks, each at its (atom, position); differentiable in the values
+    (through them into the signal and the dictionary), the positions held
+    fixed."""
+    if signal.ndim == 2:
+        signal = signal[:, None, :]
+    batch, channels, n_samples = signal.shape
+    d3 = _normalize_dict(_as3d(d))
+    rows = torch.arange(batch, device=signal.device)
+    residual = signal
+    atoms, positions, values = [], [], []
+    for _ in range(n_steps):
+        flat = mp_correlate(residual, d3, approx=approx, use_fft=use_fft).reshape(batch, -1)
+        idx = torch.argmax(flat.detach(), dim=-1)
+        # indexing saves only the index and the shape for the backward;
+        # torch.gather would keep every step's whole map alive until then
+        value = flat[rows, idx]
+        atom_index, position = idx // n_samples, idx % n_samples
+        residual = _subtract_event(residual, d3[atom_index], position, value)
+        atoms.append(atom_index)
+        positions.append(position)
+        values.append(value)
+    # one accumulating scatter of all steps: the sums of mptpu's step-by-step
+    # adds, with no dense map per step
+    fm = torch.zeros((batch, d3.shape[0], n_samples), dtype=signal.dtype, device=signal.device)
+    fm = fm.index_put(
+        (rows.expand(n_steps, batch), torch.stack(atoms), torch.stack(positions)),
+        torch.stack(values),
+        accumulate=True,
+    )
+    if return_residual:
+        return fm, residual
+    return fm
+
+
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: a maximum, then a minimum. An input exactly on a bound
+    passes half its gradient, where ``torch.clamp`` passes all of it; the
+    target map's largest entry over ``mx`` is exactly 1 whenever it holds
+    the maximum, and its gradient reaches ``recon`` through ``mx``."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+def _bce_sum(r_map: torch.Tensor, t_map: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
+    r = _clip(r_map / mx, 1e-7, 1.0 - 1e-7)
+    t = _clip(t_map / mx, 0.0, 1.0)
+    return torch.sum(-(t * torch.log(r) + (1.0 - t) * torch.log(1.0 - r)))
+
+
+def sparse_coding_loss(
+    recon: torch.Tensor,
+    target: torch.Tensor,
+    d: torch.Tensor,
+    n_steps: int = 100,
+    approx=None,
+) -> torch.Tensor:
+    """BCE between the max-normalised greedy feature maps of ``recon`` and
+    ``target``; no gradient flows into the target's map."""
+    r_map = sparse_feature_map(recon, d, n_steps=n_steps, approx=approx)
+    with torch.no_grad():
+        t_map = sparse_feature_map(target, d, n_steps=n_steps, approx=approx)
+    mx = torch.maximum(torch.amax(r_map), torch.amax(t_map))
+    # item by item, each item's terms recomputed in the backward: for the
+    # whole batch at once autograd would keep a dozen map-sized tensors
+    sums = [
+        checkpoint(_bce_sum, r, t, mx, use_reentrant=False, preserve_rng_state=False)
+        for r, t in zip(r_map.unbind(0), t_map.unbind(0))
+    ]
+    return torch.stack(sums).sum() / r_map.numel()
+
+
+def flatten_atom_dict(atom_dict) -> list:
+    """Flatten a ``{key: [events...]}`` mapping into one event list."""
+    all_instances = []
+    for v in atom_dict.values():
+        all_instances.extend(v)
+    return all_instances
+
+
+class SparseCodingLoss:
+    """Stateful sparse-coding BCE loss: for its first ``learning_steps``
+    calls it runs one ``dictionary_learning_step`` on the targets, then it
+    scores reconstructions against targets in greedy-feature-map space.
+
+    The dictionary is drawn uniformly in [-1, 1) from ``generator`` (a CPU
+    ``torch.Generator``, seeded with 0 when None, as ``mptpu``'s ``seed``)
+    and put on ``default_device(device)``. ``mptpu`` draws from
+    ``jax.random.PRNGKey(seed)`` and gets other numbers: for parity, set
+    ``d`` to ``mptpu``'s through ``mptpu_torch.convert.dictionary_from_jax``.
+    """
+
+    def __init__(
+        self,
+        n_atoms: int,
+        atom_size: int,
+        n_steps: int,
+        approx=None,
+        learning_steps: int = 16,
+        generator: torch.Generator | None = None,
+        device=None,
+    ):
+        self.approx = approx
+        self.n_steps = n_steps
+        self.learning_steps = learning_steps
+        self._steps_executed = 0
+        gen = generator or torch.Generator().manual_seed(0)
+        d = torch.rand((n_atoms, atom_size), generator=gen) * 2.0 - 1.0
+        d = d / (torch.linalg.vector_norm(d, dim=-1, keepdim=True) + 1e-8)
+        self.d = d.to(default_device(device))
+
+    def _learning_step(self, signal: torch.Tensor) -> None:
+        self.d = dictionary_learning_step(signal, self.d, n_steps=self.n_steps, approx=self.approx)
+        self._steps_executed += 1
+
+    def loss(self, recon: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        if self._steps_executed < self.learning_steps:
+            self._learning_step(target.detach())
+        return sparse_coding_loss(recon, target, self.d, n_steps=self.n_steps, approx=self.approx)
+
+    __call__ = loss
+
+
+class AtomPlacement:
+    """Add ``n_events`` rendered events, each ``n_samples`` long, into a
+    2 x ``n_samples`` buffer at ``indices * step_size`` and keep the first
+    ``n_samples``.
+
+    Starts follow ``mptpu``'s ``lax.dynamic_slice``: a negative start
+    counts from the end of the 2 x ``n_samples`` buffer, then every start
+    is clamped into ``[0, n_samples]``. So an event whose time passes
+    ``n_samples`` lands at ``n_samples``, wholly in the dropped half.
+    """
+
+    def __init__(self, n_samples: int, n_events: int, step_size: int):
+        self.n_samples = n_samples
+        self.n_events = n_events
+        self.step_size = step_size
+
+    def render(self, x: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+        n_samples, n_events = self.n_samples, self.n_events
+        x = x.reshape(-1, n_events, n_samples)
+        times = indices.reshape(-1, n_events).long() * self.step_size
+        times = torch.where(times < 0, times + 2 * n_samples, times).clamp(0, n_samples)
+        out = x.new_zeros((x.shape[0], 2 * n_samples))
+        rows = torch.arange(x.shape[0], device=x.device)[:, None]
+        span = torch.arange(n_samples, device=x.device)
+        for k in range(n_events):   # in event order, as mptpu's scan adds them
+            out = out.index_put((rows, times[:, k, None] + span), x[:, k], accumulate=True)
+        return out[:, None, :n_samples]
+
+    __call__ = render

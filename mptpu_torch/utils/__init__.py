@@ -1,0 +1,6 @@
+"""Helpers of the port (counterpart of ``mptpu.utils``; only the ported
+names)."""
+
+from .music import midi_to_hz, musical_scale_hz
+
+__all__ = ["midi_to_hz", "musical_scale_hz"]

@@ -163,3 +163,41 @@ def test_chip_smoke_fails_without_a_card_or_the_package(where, tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("kind", ["elementwise", "vectorwise"])
+def test_sparsity_from_flax_round_trip(kind):
+    """mptpu's flax parameters copied into the port's module give mptpu's
+    outputs (rtol 1e-4 / atol 1e-5; top-k indices identical); a tree of
+    other layers or shapes is refused."""
+    import jax
+
+    from mptpu import sparse as jsp
+    from mptpu_torch import sparse as tsp
+
+    x = np.random.default_rng(6).standard_normal((2, 8, 32)).astype(np.float32)
+    if kind == "elementwise":
+        jm = jsp.ElementwiseSparsity(model_dim=8, high_dim=32, keep=4)
+        tm = tsp.ElementwiseSparsity(model_dim=8, high_dim=32, keep=4, device="cpu")
+    else:
+        jm = jsp.VectorwiseSparsity(model_dim=8, keep=3, channels_last=False)
+        tm = tsp.VectorwiseSparsity(model_dim=8, keep=3, channels_last=False, device="cpu")
+    variables = jm.init(jax.random.PRNGKey(1), jnp.asarray(x))
+    assert convert.sparsity_from_flax(tm, variables) is tm
+    for name, leaf in variables["params"].items():
+        np.testing.assert_array_equal(getattr(tm, name).weight.detach().numpy(),
+                                      np.asarray(leaf["kernel"]).T)
+    want = jm.apply(variables, jnp.asarray(x))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-4, atol=1e-5)
+    if kind == "elementwise":
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=1e-4, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+    with pytest.raises(ValueError):
+        convert.sparsity_from_flax(tm, {"Dense_5": variables["params"]["Dense_0"]})
+    bad = {k: {"kernel": np.zeros((3, 3)), "bias": np.zeros(3)} for k in variables["params"]}
+    with pytest.raises(ValueError):
+        convert.sparsity_from_flax(tm, {"params": bad})
