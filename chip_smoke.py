@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``mptpu_torch``) on one CUDA card and
 check it: the greedy matching-pursuit encoder at the bench configuration,
-multiband dictionary learning at its full width, and the rest of the
-sparse layer (OMP refit, feature-map loss, top-k, quantize, sharded MP).
+multiband dictionary learning at its full width, the rest of the sparse
+layer (OMP refit, feature-map loss, top-k, quantize, sharded MP), and the
+audio-splatting overfit at its full width.
 
     python3 chip_smoke.py
 
@@ -54,6 +55,18 @@ Phases, each printing lines (any failure exits non-zero):
    the naive coder's; after the counted run, the learning path's encode
    (one chain of 100 cluster step kernel launches at block 512) against the
    naive coder;
+6. (after phase 4, before phase 5's times) the splat overfit at
+   ``scripts/splat.py``'s configuration (2^16 samples, 22,050 Hz, 64
+   events, context 16, Adam lr 1e-3) on a seeded signal of three decaying
+   sines plus noise: one forward and backward on the card against the CPU
+   from one ``state_dict`` and one noise draw (events, loss, the gradients
+   by group; the times' gradients, float32 noise on either side, in
+   float64), ``overfit_splat`` for 5 warm-up and 200 timed steps (steps/s,
+   the loss must fall, no step skipped by the NaN guard), one step split
+   by CUDA events into forward, loss, backward and optimizer and traced
+   (kernel launches a step, device busy and idle share, peak memory under
+   16 GiB), 20 steps of the iterative loss (finite), and no launch of the
+   six kernels;
 5. each kernel's time beside its plain version's, its bound and, for the
    boundary kernel, one ``torch.matmul`` computing the same product; the two
    step kernels per step from a chain of launches, with and without
@@ -61,7 +74,7 @@ Phases, each printing lines (any failure exits non-zero):
    multiband band beside the whole-encode kernel doing the same steps in one
    launch; the two whole-encode kernels and the cluster step kernel by
    cluster size, with the clusters the card holds at once beside each;
-6. a ``kernels`` JSON line, then the result line
+7. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It needs CUDA and the ``mptpu_torch`` package beside it, and exits with
@@ -92,6 +105,13 @@ LONG_ATOMS = dict(batch=2, n_atoms=16, atom_size=2048, n_samples=16384, n_steps=
 PROBE_STEPS = 3200   # scripts/grid_overhead_probe.py:53
 # the sparse layer's loss at a small shape, on the card against the CPU
 SMALL_LOSS = dict(batch=2, n_atoms=16, atom_size=128, n_samples=1024, n_steps=8)
+# scripts/splat.py:34-40,67 (BASELINE #3), driven for a few hundred steps
+SPLAT = dict(n_samples=2**16, samplerate=22050, n_events=64, context_dim=16, lr=1e-3, warmup=5,
+             steps=200, iterative_steps=20)
+# phase 6, the card against the CPU: events (atol, of their largest), loss
+# (relative), gradients (rtol and atol of each array's largest; the times'
+# in float64, in float32 they are rounding noise on either side)
+SPLAT_TOL = dict(events=1e-4, loss=1e-4, gradients=1e-3, times64=1e-6)
 # the probe's kinds: label -> (kind, programmatic)
 PROBE_KINDS = {"grid": ("grid", False), "grid chained": ("grid", True), "fori": ("fori", False)}
 HOLD_CYCLES = 20_000_000   # about 10 ms of device spinning ahead of a timed run
@@ -138,17 +158,22 @@ def planted_signal(cfg, seed: int = 1):
     return d, sig
 
 
-def multiband_signal(mb):
-    """scripts/multiband_bench.py:49-59: three decaying sines plus noise,
-    tiled over the batch with a little noise per item."""
-    n, batch = mb["n_samples"], mb["batch"]
-    rng = np.random.default_rng(0)
+def sines_signal(n: int, rng):
+    """Three decaying sines plus noise from ``rng``, max-normed float32
+    (scripts/multiband_bench.py:49-55); the splat overfit's target."""
     t = np.arange(n) / 22050.0
     sig = sum(np.sin(2 * np.pi * f * t) * np.exp(-t * d)
               for f, d in [(220, 1.0), (880, 2.0), (3520, 4.0)])
     sig = sig + 0.1 * rng.standard_normal(n)
-    sig = (sig / np.abs(sig).max()).astype(np.float32)
-    batch_np = np.tile(sig[None, None, :], (batch, 1, 1))
+    return (sig / np.abs(sig).max()).astype(np.float32)
+
+
+def multiband_signal(mb):
+    """scripts/multiband_bench.py:49-59: ``sines_signal`` tiled over the
+    batch with a little noise per item."""
+    rng = np.random.default_rng(0)
+    sig = sines_signal(mb["n_samples"], rng)
+    batch_np = np.tile(sig[None, None, :], (mb["batch"], 1, 1))
     batch_np += 0.01 * rng.standard_normal(batch_np.shape).astype(np.float32)
     return batch_np
 
@@ -345,12 +370,12 @@ def cluster_step_check(name, state, d2, gram_p, kw, n_steps, sync, gate_tail=Tru
 
 
 def device_time_by_kernel(fn, sync):
-    """({kernel name: device ms}, busy ms) over one call of ``fn`` traced
-    with ``torch.profiler``; empty and 0 when the trace holds no device time.
-    Busy time is the union of the kernels' intervals in the trace, not the
-    sum of their durations: under programmatic stream serialization a step
-    kernel starts while the step before it runs and waits inside, so its
-    interval overlaps its predecessor's."""
+    """({kernel name: device ms}, busy ms, kernel launches) over one call of
+    ``fn`` traced with ``torch.profiler``; empty and 0 when the trace holds
+    no device time. Busy time is the union of the kernels' intervals in the
+    trace, not the sum of their durations: under programmatic stream
+    serialization a step kernel starts while the step before it runs and
+    waits inside, so its interval overlaps its predecessor's."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -363,24 +388,25 @@ def device_time_by_kernel(fn, sync):
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
-    rows, spans = {}, []
+    rows, spans, n_kernels = {}, [], 0
     for e in events:
         if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and e.get("dur", 0) > 0:
             rows[e["name"]] = rows.get(e["name"], 0.0) + e["dur"] / 1e3
             spans.append((e["ts"], e["ts"] + e["dur"]))
+            n_kernels += e.get("cat") == "kernel"
     busy, end = 0.0, float("-inf")
     for t0, t1 in sorted(spans):
         if t1 > end:
             busy += t1 - max(t0, end)
             end = t1
-    return rows, busy / 1e3
+    return rows, busy / 1e3, n_kernels
 
 
 def busy_line(what, traced, wall_ms):
     """One line: the device's busy time (the union of the traced kernels'
     intervals) against ``wall_ms`` and the kernels whose intervals sum to
     most."""
-    rows, busy = traced
+    rows, busy = traced[:2]
     if not rows:
         return f"{what}: device time not measured (the profiler's trace holds no device time)"
     top = sorted(rows.items(), key=lambda kv: -kv[1])[:6]
@@ -452,7 +478,8 @@ def multiband_phase(dev, mb, peaks, sync, records):
     for size, ev in enc.items():
         if tuple(ev.atom_indices.shape) != (steps, batch) or not torch.isfinite(ev.values).all():
             fail(f"multiband encode, band {size}: wrong event shape or non-finite values")
-    enc_rows = device_time_by_kernel(lambda: model.encode(x, steps), sync) if on_card else ({}, 0)
+    enc_rows = (device_time_by_kernel(lambda: model.encode(x, steps), sync) if on_card
+                else ({}, 0, 0))
     d_start = {size: band.d for size, band in model.bands.items()}
     learn_ms = [clocked(lambda: model.learn(x, steps))[1] for _ in range(mb["learn_iters"])]
     for size, band in model.bands.items():
@@ -1001,8 +1028,194 @@ def sparse_layer_phase(dev, cfg, records):
           f"{max_err([(learned.residual, naive.residual)]):.3e}")
 
 
-def run(dev, cfg, peaks, sync, mb=MULTIBAND):
-    """Phases 2-5 on device ``dev``; returns the kernels' records."""
+def splat_groups(model):
+    """Parameter names of the splat model by group: the MLP heads, the
+    hierarchy's event vectors, its times, the reverb MLPs."""
+    groups = {"heads": [], "vectors": [], "times": [], "reverb": []}
+    for name, _ in model.named_parameters():
+        key = ("heads" if name.startswith("transform.") else
+               "reverb" if name.startswith("decoder.") else
+               "times" if "time" in name else "vectors")
+        groups[key].append(name)
+    return groups
+
+
+def splat_phase(dev, cfg, sync):
+    """Phase 6, the splat overfit (BASELINE #3, scripts/splat.py's
+    configuration), launch counts set to 0 first and read last: (1) one
+    forward and backward at full width on the card against the CPU, the
+    same parameters (a state_dict) and noise: events, loss, every gradient
+    by group; the times' gradients, float32 noise on either side, also in
+    float64; (2) ``overfit_splat`` on the card, warm-up steps then timed
+    steps, the loss falling; (3) one step split by CUDA events into
+    forward, loss, backward and optimizer, one traced with torch.profiler,
+    and its peak memory; (4) steps of the iterative loss; (5) none of the
+    six kernels launched."""
+    import torch
+
+    from mptpu_torch import kernels
+    from mptpu_torch.models import OverfitHierarchicalEvents, overfit_splat
+    from mptpu_torch.models.splat_overfit import splat_loss, splat_loss_transform
+    from mptpu_torch.train import optimizer
+
+    n, sr, E, C = (cfg[k] for k in ("n_samples", "samplerate", "n_events", "context_dim"))
+    on_card = dev.type == "cuda"
+    target_np = sines_signal(n, np.random.default_rng(0))
+    noise_np = np.random.default_rng(1).uniform(-1, 1, (1, 1, n)).astype(np.float32)
+    kernels.reset_launches()
+    t_phase = time.perf_counter()
+
+    # 1. the card against the CPU, one forward and backward at full width
+    model = OverfitHierarchicalEvents(n, sr, E, C, device=dev)
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    groups = splat_groups(model)
+
+    def forward_backward(device, dtype):
+        m = OverfitHierarchicalEvents(n, sr, E, C, device=device)
+        m.load_state_dict(state)
+        m = m.to(dtype)
+        target = torch.from_numpy(target_np).to(device, dtype).reshape(1, 1, n)
+        t0 = time.perf_counter()
+        recon, _, _ = m(noise=torch.from_numpy(noise_np).to(device, dtype))
+        loss = splat_loss(recon, target)
+        names, params = zip(*m.named_parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        return (recon.detach().cpu().double(), loss.detach().cpu().double(),
+                {k: g.detach().cpu().double() for k, g in zip(names, grads)}, ms)
+
+    card = forward_backward(dev, torch.float32)
+    cpu = forward_backward(torch.device("cpu"), torch.float32)
+    card64 = forward_backward(dev, torch.float64)
+    cpu64 = forward_backward(torch.device("cpu"), torch.float64)
+    scale = float(cpu[0].abs().max())
+    ev_err = max_err([(card[0], cpu[0])])
+    loss_rel = abs(float(card[1] - cpu[1])) / abs(float(cpu[1]))
+    errs = {}   # group: (max abs err, largest |gradient|)
+    for group, names in groups.items():
+        errs[group] = (max_err([(card[2][k], cpu[2][k]) for k in names]),
+                       max(float(cpu[2][k].abs().max()) for k in names))
+    times = groups["times"]
+    errs["times, float64"] = (max_err([(card64[2][k], cpu64[2][k]) for k in times]),
+                              max(float(cpu64[2][k].abs().max()) for k in times))
+    errs["times, card float32 against float64"] = (
+        max_err([(card[2][k], card64[2][k]) for k in times]), errs["times, float64"][1])
+    print(f"splat 1, one forward and backward at full width ({n} samples, {E} events, context "
+          f"{C}; {sum(p.numel() for p in model.parameters())} parameters), card against CPU, "
+          f"the same parameters and noise: events max abs err {ev_err:.3e} (largest "
+          f"{scale:.3e}), loss {float(card[1]):.6f} against {float(cpu[1]):.6f} (relative "
+          f"{loss_rel:.2e}); gradients, max abs err (largest): "
+          + ", ".join(f"{g} {e:.3e} ({m:.3e})" for g, (e, m) in errs.items())
+          + f"; host ms card {card[3]:.1f}, CPU {cpu[3]:.1f}, card float64 {card64[3]:.1f}, CPU "
+          f"float64 {cpu64[3]:.1f}")
+    if not (torch.isfinite(card[0]).all() and tuple(card[0].shape) == (1, E, n)):
+        fail("splat: the card's events are not finite or not (1, n_events, n_samples)")
+    if ev_err > SPLAT_TOL["events"] * scale:
+        fail(f"splat: events on the card {ev_err:.3e} from the CPU's, above "
+             f"{SPLAT_TOL['events']} of {scale:.3e}")
+    if loss_rel > SPLAT_TOL["loss"]:
+        fail(f"splat: loss on the card {loss_rel:.2e} from the CPU's (relative)")
+    for group, names in groups.items():
+        # the times' gradients are float32 noise on either side: held in float64
+        pairs = ([(card64[2][k], cpu64[2][k]) for k in names] if group == "times"
+                 else [(card[2][k], cpu[2][k]) for k in names])
+        rtol = SPLAT_TOL["times64"] if group == "times" else SPLAT_TOL["gradients"]
+        for (a, b), k in zip(pairs, names):
+            assert_close(f"splat gradient {k}, card against CPU", a, b,
+                         dict(rtol=rtol, atol=rtol * max(float(b.abs().max()), 1e-30)))
+    del card, cpu, card64, cpu64, model, state
+
+    # 2. the trainer
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fit = overfit_splat(target_np, n_events=E, event_dim=C, n_iterations=cfg["steps"],
+                        lr=cfg["lr"], warmup=cfg["warmup"], samplerate=sr, device=dev,
+                        generator=gen)
+    losses = fit.losses
+    if fit.skipped or not all(np.isfinite(losses)):
+        fail(f"splat overfit: {fit.skipped} steps skipped by the guard")
+    if not losses[-1] < losses[0]:
+        fail(f"splat overfit: the loss did not fall ({losses[0]:.4f} -> {losses[-1]:.4f})")
+    step_ms = 1e3 / fit.steps_per_sec
+    print(f"splat 2, overfit_splat on the card: {cfg['warmup']} warm-up steps, then "
+          f"{cfg['steps']} timed: {fit.steps_per_sec:.3f} steps/s ({step_ms:.3f} ms a step, host "
+          f"clock ending in a synchronisation); loss first step {losses[0]:.4f}, last "
+          f"{losses[-1]:.4f} (means of the first and last 10: {np.mean(losses[:10]):.4f}, "
+          f"{np.mean(losses[-10:]):.4f}); {fit.skipped} steps skipped by the guard")
+
+    # 3. one step split, traced and its peak memory
+    model = fit.model
+    target = torch.from_numpy(target_np).to(dev).reshape(1, 1, n)
+    with torch.no_grad():
+        feature = splat_loss_transform(target)
+    opt = optimizer(model.parameters(), lr=cfg["lr"], b1=0.9, b2=0.999)
+
+    def one_step(mark=lambda: None):
+        opt.zero_grad(set_to_none=True)
+        mark()
+        recon, _, _ = model(generator=gen)
+        mark()
+        loss = splat_loss(recon, target, target_feature=feature)
+        mark()
+        loss.backward()
+        mark()
+        if bool(torch.isfinite(loss)):
+            opt.step()
+        mark()
+
+    for _ in range(2):
+        one_step()
+    parts = "forward, loss, backward, optimizer"
+    if on_card:
+        events, host = [], []
+
+        def mark():
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            host.append(time.perf_counter())
+
+        one_step(mark)
+        sync()
+        split = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        split_text = ", ".join(f"{p} {ms:.3f}" for p, ms in zip(parts.split(", "), split))
+        host_text = ", ".join(f"{(b - a) * 1e3:.3f}" for a, b in zip(host, host[1:]))
+        traced = device_time_by_kernel(one_step, sync)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        one_step()
+        sync()
+        peak = torch.cuda.max_memory_allocated(dev)
+        if peak >= 16 * 2**30:
+            fail(f"splat step: peak {peak / 2**30:.2f} GiB, not under 16 GiB")
+        print(f"splat 3, one step split by CUDA events ({parts}), ms: {split_text} (host clock "
+              f"between the same marks: {host_text}); traced: {traced[2]} kernel launches a step; "
+              f"peak memory {peak / 2**30:.3f} GiB over a step (from {base / 2**30:.3f} GiB "
+              f"before, limit 16 GiB)")
+        print(busy_line("splat step, traced", traced, step_ms))
+    else:
+        one_step()
+        print("splat 3, one step: split, trace and peak memory not measured (no card)")
+
+    # 4. the iterative loss
+    it = overfit_splat(target_np, n_events=E, event_dim=C, n_iterations=cfg["iterative_steps"],
+                       lr=cfg["lr"], use_iterative_loss=True, samplerate=sr, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(1))
+    if it.skipped or not all(np.isfinite(it.losses)):
+        fail(f"splat overfit with the iterative loss: non-finite losses {it.losses}")
+    print(f"splat 4, overfit_splat(use_iterative_loss=True), {cfg['iterative_steps']} steps: "
+          f"{it.steps_per_sec:.3f} steps/s, losses finite, first {it.losses[0]:.4f}, last "
+          f"{it.losses[-1]:.4f}")
+
+    # 5. none of the six kernels
+    launches = dict(kernels.LAUNCHES)
+    if launches != {k: 0 for k in launches}:
+        fail(f"splat phase: launches {launches}, expected none")
+    print(f"splat launches {launches}; the phase took {time.perf_counter() - t_phase:.1f} s "
+          f"(host clock)")
+
+
+def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT):
+    """Phases 2-6 on device ``dev``; returns the kernels' records."""
     import torch
     import torch.nn.functional as F
 
@@ -1407,6 +1620,8 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND):
     probe_phase(dev, peaks, sync, records)
 
     sparse_layer_phase(dev, cfg, records)
+
+    splat_phase(dev, splat, sync)
 
     # ---- phase 5: per-kernel times
     fm, bm, res = encode_state(sig_b, d2_b, geom)

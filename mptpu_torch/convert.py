@@ -3,7 +3,9 @@
 Anything ``np.asarray`` accepts (a JAX array, a numpy array, a nested
 list) converts. For the matching-pursuit encoder the dictionary is the
 whole model; for the multiband codec it is one dictionary per band; the
-sparsity modules take a flax parameter tree of ``Dense`` layers.
+sparsity modules and the splat overfit take a flax parameter tree, whose
+``Dense`` layers and parameters the port's modules hold under the same
+names.
 """
 
 from __future__ import annotations
@@ -54,26 +56,84 @@ def band_dicts_from_jax(model_or_dict, device=None) -> dict:
     return {int(size): dictionary_from_jax(d, device) for size, d in dicts.items()}
 
 
+def _copy_dense(linear: torch.nn.Linear, leaf, path: str) -> None:
+    """Copy a flax ``Dense`` (``{"kernel": (in, out)[, "bias": (out,)]}``)
+    into ``linear``: the kernel transposed into the weight; the bias only
+    where both have one. Raises on any other name or shape."""
+    if set(leaf) - {"kernel", "bias"} or ("bias" in leaf) != (linear.bias is not None):
+        raise ValueError(f"{path}: flax entries {sorted(leaf)} against an nn.Linear "
+                         f"{'with' if linear.bias is not None else 'without'} bias")
+    weight = np.asarray(leaf["kernel"], dtype=np.float32).T
+    if weight.shape != tuple(linear.weight.shape):
+        raise ValueError(f"{path}: kernel {weight.T.shape} against the module's weight "
+                         f"{tuple(linear.weight.shape)} (transposed)")
+    with torch.no_grad():
+        linear.weight.copy_(torch.from_numpy(weight.copy()))
+        if linear.bias is not None:
+            bias = np.array(leaf["bias"], dtype=np.float32)
+            if bias.shape != tuple(linear.bias.shape):
+                raise ValueError(f"{path}: bias {bias.shape} against the module's "
+                                 f"{tuple(linear.bias.shape)}")
+            linear.bias.copy_(torch.from_numpy(bias))
+
+
+def _copy_tree(module: torch.nn.Module, tree, path: str) -> None:
+    """Copy a flax parameter tree into ``module`` by name: a ``Dense`` leaf
+    into the ``nn.Linear`` child of its name, an array into the parameter
+    of its name, a subtree into the child of its name. The names must be
+    exactly the module's own parameters and its children that hold any."""
+    own = {name for name, _ in module.named_parameters(recurse=False)}
+    own |= {name for name, child in module.named_children()
+            if next(child.parameters(), None) is not None}
+    if set(tree) != own:
+        raise ValueError(f"{path or 'the tree'}: flax names {sorted(tree)} against the "
+                         f"module's {sorted(own)}")
+    for name, node in tree.items():
+        where = f"{path}/{name}" if path else name
+        target = getattr(module, name)
+        if isinstance(target, torch.nn.Linear):
+            if not isinstance(node, dict):
+                raise ValueError(f"{where}: an array against an nn.Linear")
+            _copy_dense(target, node, where)
+        elif isinstance(target, torch.nn.Parameter):
+            if isinstance(node, dict):
+                raise ValueError(f"{where}: a subtree against a parameter")
+            arr = np.asarray(node, dtype=np.float32)
+            if arr.shape != tuple(target.shape):
+                raise ValueError(f"{where}: shape {arr.shape} against the parameter's "
+                                 f"{tuple(target.shape)}")
+            with torch.no_grad():
+                target.copy_(torch.from_numpy(arr.copy()))
+        elif isinstance(node, dict):
+            _copy_tree(target, node, where)
+        else:
+            raise ValueError(f"{where}: an array against a module")
+
+
 def sparsity_from_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
     """Copy the flax parameters of ``mptpu``'s ``ElementwiseSparsity`` or
     ``VectorwiseSparsity`` (``module.init``'s ``{"params": {"Dense_i":
     {"kernel", "bias"}}}``, or its ``"params"`` entry) into the port's
     module of the same shape, in place, and return it. A flax ``kernel`` is
     (in, out) and an ``nn.Linear`` weight (out, in): it is transposed."""
+    _copy_tree(module, variables.get("params", variables), "")
+    return module
+
+
+# the splat model's top-level flax modules and the port's attributes for them
+SPLAT_CHILDREN = {"MultiHeadTransform_0": "transform", "SplattingEventGenerator_0": "decoder"}
+
+
+def splat_from_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
+    """Copy a flax tree of the splat model (``{"params": ...}`` or its
+    ``"params"`` entry) into the port's module of the same configuration,
+    in place, and return it: ``OverfitHierarchicalEvents.init``'s tree into
+    an ``OverfitHierarchicalEvents`` (the event and time parameters, every
+    head of ``MultiHeadTransform_0``, the port's ``transform``, and the
+    reverb MLPs of ``SplattingEventGenerator_0``, its ``decoder``), or the
+    tree of one of its parts (a ``SplattingEventGenerator``, a
+    ``MultiHeadTransform``, a ``LinearOutputStack``) into that part. Raises
+    on any name or shape that does not match."""
     params = variables.get("params", variables)
-    layers = {name for name, m in module.named_children() if isinstance(m, torch.nn.Linear)}
-    if set(params) != layers:
-        raise ValueError(f"flax layers {sorted(params)} against the module's {sorted(layers)}")
-    with torch.no_grad():
-        for name, leaf in params.items():
-            linear = getattr(module, name)
-            weight = np.asarray(leaf["kernel"], dtype=np.float32).T
-            bias = np.array(leaf["bias"], dtype=np.float32)
-            if weight.shape != tuple(linear.weight.shape) or bias.shape != tuple(linear.bias.shape):
-                raise ValueError(
-                    f"{name}: kernel {weight.T.shape}, bias {bias.shape} against the module's "
-                    f"weight {tuple(linear.weight.shape)} (transposed), bias {tuple(linear.bias.shape)}"
-                )
-            linear.weight.copy_(torch.from_numpy(weight.copy()))
-            linear.bias.copy_(torch.from_numpy(bias))
+    _copy_tree(module, {SPLAT_CHILDREN.get(k, k): v for k, v in params.items()}, "")
     return module

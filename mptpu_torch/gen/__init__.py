@@ -1,6 +1,33 @@
-"""Synthesis helpers of the port (counterpart of ``mptpu.gen``; only the
-ported names)."""
+"""Synthesis helpers and event generators of the port (counterpart of
+``mptpu.gen``; only the ported names)."""
 
-from .transfer import make_waves
+from .generator import EventGenerator, ShapeSpec
+from .reds import F0Resonance, exponential_decay
+from .reverb import NeuralReverb, ReverbGenerator, load_impulse_responses
+from .schedule import (
+    DiracScheduler,
+    FFTShiftScheduler,
+    HierarchicalDiracModel,
+    hierarchical_dirac,
+    interpretable_fft_shift,
+)
+from .splat import SplattingEventGenerator
+from .transfer import gaussian_bandpass_filtered, make_waves
 
-__all__ = ["make_waves"]
+__all__ = [
+    "EventGenerator",
+    "ShapeSpec",
+    "F0Resonance",
+    "exponential_decay",
+    "NeuralReverb",
+    "ReverbGenerator",
+    "load_impulse_responses",
+    "DiracScheduler",
+    "FFTShiftScheduler",
+    "HierarchicalDiracModel",
+    "hierarchical_dirac",
+    "interpretable_fft_shift",
+    "SplattingEventGenerator",
+    "gaussian_bandpass_filtered",
+    "make_waves",
+]

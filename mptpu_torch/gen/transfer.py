@@ -1,4 +1,5 @@
-"""Waveform tables (counterpart of ``make_waves`` in
+"""Waveform tables and Gaussian band-pass filtering (counterpart of
+``make_waves`` and ``gaussian_bandpass_filtered`` in
 ``mptpu/gen/transfer.py``; the rest of that module is not ported yet)."""
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ import torch
 from scipy.signal import sawtooth, square
 
 from ..device import default_device
+from ..ops.pdf import pdf2
 
 
 def make_waves(n_samples: int, f0s: List[float], samplerate: int, device=None) -> torch.Tensor:
@@ -27,3 +29,14 @@ def make_waves(n_samples: int, f0s: List[float], samplerate: int, device=None) -
         sines.append(np.sin(radians)[None, :])
     waves = np.concatenate(sawtooths + squares + triangles + sines, axis=0)
     return torch.from_numpy(waves.astype(np.float32)).to(default_device(device))
+
+
+def gaussian_bandpass_filtered(means: torch.Tensor, stds: torch.Tensor, signals: torch.Tensor,
+                               normalize: bool = True) -> torch.Tensor:
+    """Filter ``signals`` (..., samples) by Gaussian magnitude responses:
+    ``pdf2(means, stds)`` over the rFFT's coefficients, unnormalised
+    transforms; the responses (..., coeffs) broadcast against the spectra."""
+    samples = signals.shape[-1]
+    gaussians = pdf2(means, stds, samples // 2 + 1, normalize=normalize)
+    spec = torch.fft.rfft(signals, dim=-1)
+    return torch.fft.irfft(spec * gaussians, n=samples, dim=-1)

@@ -1,7 +1,16 @@
 """L0 ops of the sparse layer (counterpart of ``mptpu.ops``; only the
 ported names)."""
 
-from .fft import n_fft_coeffs, next_pow2, rfft, irfft, fft_convolve, simple_fft_convolve
+from .fft import (
+    n_fft_coeffs,
+    next_pow2,
+    to_complex,
+    cexp,
+    rfft,
+    irfft,
+    fft_convolve,
+    simple_fft_convolve,
+)
 from .correlation import mp_correlate, torch_style_conv
 from .norms import unit_norm, max_norm, limit_norm, example_norm
 from .decompose import (
@@ -20,10 +29,21 @@ from .ste import (
     hard_softmax,
 )
 from .refit import refit_gains
+from .windows import hann_window, hamming_window, linspace
+from .pdf import pdf, pdf2, gamma_pdf
+from .upsample import (
+    upsample_with_holes,
+    interpolate_last_axis,
+    ensure_last_axis_length,
+    fft_upsample,
+)
+from .stft import stft, log_stft, stft_relative_phase, short_time_transform
 
 __all__ = [
     "n_fft_coeffs",
     "next_pow2",
+    "to_complex",
+    "cexp",
     "rfft",
     "irfft",
     "fft_convolve",
@@ -46,4 +66,18 @@ __all__ = [
     "step_func",
     "hard_softmax",
     "refit_gains",
+    "hann_window",
+    "hamming_window",
+    "linspace",
+    "pdf",
+    "pdf2",
+    "gamma_pdf",
+    "upsample_with_holes",
+    "interpolate_last_axis",
+    "ensure_last_axis_length",
+    "fft_upsample",
+    "stft",
+    "log_stft",
+    "stft_relative_phase",
+    "short_time_transform",
 ]

@@ -1,4 +1,6 @@
-"""FFT convolution primitives (counterpart of ``mptpu/ops/fft.py``).
+"""FFT convolution primitives and complex construction (counterpart of
+``mptpu/ops/fft.py``; ``fft_shift`` and ``randomize_phase`` are not ported
+yet).
 
 Real FFTs over the last axis; ``norm="ortho"`` is passed straight to
 ``torch.fft``.
@@ -19,6 +21,16 @@ def n_fft_coeffs(size: int) -> int:
 def next_pow2(n: int) -> int:
     """Smallest power of two >= n."""
     return 1 << max(0, (int(n) - 1)).bit_length()
+
+
+def to_complex(real: torch.Tensor, imag: torch.Tensor) -> torch.Tensor:
+    """real + 1j * imag, from float32 parts."""
+    return torch.complex(real.float(), imag.float())
+
+
+def cexp(phase: torch.Tensor) -> torch.Tensor:
+    """exp(1j * phase) as cos + 1j * sin, as ``mptpu`` builds it."""
+    return torch.complex(torch.cos(phase), torch.sin(phase))
 
 
 def rfft(x: torch.Tensor, n: int | None = None, axis: int = -1, norm: str | None = None):

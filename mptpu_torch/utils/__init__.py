@@ -2,5 +2,6 @@
 names)."""
 
 from .music import midi_to_hz, musical_scale_hz
+from .wav import read_wav
 
-__all__ = ["midi_to_hz", "musical_scale_hz"]
+__all__ = ["midi_to_hz", "musical_scale_hz", "read_wav"]

@@ -118,7 +118,8 @@ def test_importing_the_port_needs_no_nvcc(tmp_path):
     env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path))
     code = (
         "import mptpu_torch, mptpu_torch.kernels, mptpu_torch.sparse, mptpu_torch.ops, "
-        "mptpu_torch.convert, mptpu_torch.probes, mptpu_torch.sparse.multiband; "
+        "mptpu_torch.convert, mptpu_torch.probes, mptpu_torch.sparse.multiband, "
+        "mptpu_torch.models, mptpu_torch.train, mptpu_torch.losses, mptpu_torch.nn; "
         "print(mptpu_torch.kernels._lib is None)"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
