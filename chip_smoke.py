@@ -2,8 +2,9 @@
 """Drive the PyTorch / CUDA port (``mptpu_torch``) on one CUDA card and
 check it: the greedy matching-pursuit encoder at the bench configuration,
 multiband dictionary learning at its full width, the rest of the sparse
-layer (OMP refit, feature-map loss, top-k, quantize, sharded MP), and the
-audio-splatting overfit at its full width.
+layer (OMP refit, feature-map loss, top-k, quantize, sharded MP), the
+audio-splatting overfit at its full width, and the SIAM codec's serving
+path at its full width.
 
     python3 chip_smoke.py
 
@@ -67,6 +68,20 @@ Phases, each printing lines (any failure exits non-zero):
    (kernel launches a step, device busy and idle share, peak memory under
    16 GiB), 20 steps of the iterative loss (finite), and no launch of the
    six kernels;
+7. (after phase 6, before phase 5's times) the SIAM codec (BASELINE #4)
+   at sw6's shapes (2^17 samples, 32 events, hidden 128, context 32, STFT
+   2048/256, ``scripts/codec_rate.py``'s flags) from parameters seeded
+   with 0 and one noise draw from a CUDA generator seeded with 0, on the
+   first window of ``codec_rate.py``'s segment (seed 3, fade-tailed): the
+   encode (frames identical, vectors rtol 1e-4, channels within 1e-4 of
+   their largest), the f16 wire decode and the alignment refinement within
+   256 samples (both devices decode the card's wire bits; shifts
+   identical; raw, wire and refined SNR within 0.01 dB), on the card
+   against the CPU; the handoff walk over the 262,144-sample segment
+   (within 1e-4); host ms of encode, decode, refinement and walk; one
+   encode traced (launches, busy and idle share) and its peak memory; the
+   encode and the bare inverse FFT against float64 with and without the
+   end coefficients made real; no launch of the six kernels;
 5. each kernel's time beside its plain version's, its bound and, for the
    boundary kernel, one ``torch.matmul`` computing the same product; the two
    step kernels per step from a chain of launches, with and without
@@ -74,7 +89,7 @@ Phases, each printing lines (any failure exits non-zero):
    multiband band beside the whole-encode kernel doing the same steps in one
    launch; the two whole-encode kernels and the cluster step kernel by
    cluster size, with the clusters the card holds at once beside each;
-7. a ``kernels`` JSON line, then the result line
+8. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It needs CUDA and the ``mptpu_torch`` package beside it, and exits with
@@ -112,6 +127,13 @@ SPLAT = dict(n_samples=2**16, samplerate=22050, n_events=64, context_dim=16, lr=
 # (relative), gradients (rtol and atol of each array's largest; the times'
 # in float64, in float32 they are rounding noise on either side)
 SPLAT_TOL = dict(events=1e-4, loss=1e-4, gradients=1e-3, times64=1e-6)
+# sw6's shapes (BASELINE #4, trained_weights/siam_overfit_full_sw6): the first window of
+# scripts/codec_rate.py's segment (262,144 samples, 24 events, seed 3), max_shift 256
+SIAM = dict(n_samples=2**17, n_events=32, hidden=128, context_dim=32, window=2048, step=256,
+            walk_samples=262144, audio_events=24, max_shift=256, reps=3)
+# phase 7, the card against the CPU: channels, the wire decode, the refined decode
+# and the walk within this share of their largest magnitude
+SIAM_TOL = 1e-4
 # the probe's kinds: label -> (kind, programmatic)
 PROBE_KINDS = {"grid": ("grid", False), "grid chained": ("grid", True), "fori": ("fori", False)}
 HOLD_CYCLES = 20_000_000   # about 10 ms of device spinning ahead of a timed run
@@ -1214,8 +1236,288 @@ def splat_phase(dev, cfg, sync):
           f"(host clock)")
 
 
-def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT):
-    """Phases 2-6 on device ``dev``; returns the kernels' records."""
+def siam_model(dev, cfg, dtype=None):
+    """The SIAM model of ``cfg`` (scripts/codec_rate.py:187-196's flags,
+    switch_bias_init as sw6 trained) from seed 0, on ``dev``."""
+    import torch
+
+    from mptpu_torch.models import SIAMModel
+
+    model = SIAMModel(
+        n_samples=cfg["n_samples"], context_dim=cfg["context_dim"],
+        in_channels=cfg["window"] // 2 + 1, hidden_channels=cfg["hidden"],
+        n_events=cfg["n_events"], transform_window_size=cfg["window"],
+        transform_step_size=cfg["step"], fft_resonance=True, attn_floor=0.01, attn_leak=0.1,
+        switch_clamp=20.0, residual_clamp_scale=4.0, encoder_clamp=1e4, switch_bias_init=1.0,
+        generator=torch.Generator().manual_seed(0), device=dev)
+    return model if dtype is None else model.to(dtype)
+
+
+def first_window(codec, target, enc_input, max_shift, wire=None):
+    """scripts/codec_rate.py's first window through ``codec``: the encode,
+    the f16 wire decode, the shift and gain refinement of the wire's
+    channels within ``max_shift`` samples against the target's first half
+    (the corrections carried as i16 and f16). ``wire``, another run's
+    quantized (vecs, schedules), is decoded in place of this encode's own,
+    so that two devices' decoders are held on the same wire bits. Returns
+    the outputs and the smallest top-1 / top-2 attention gap of the
+    encode's steps."""
+    import torch
+
+    from mptpu_torch.models import SIAMEncoding, quantize_events, refine_event_alignment
+
+    half = target.shape[-1] // 2
+    gaps = []
+
+    def on_switch(module, args, out):
+        # the attention over the window's first half, where events may sit
+        attn = torch.relu(out[..., 0])[:, : out.shape[1] // 2]
+        top = torch.topk(attn, 2, dim=-1).values
+        gaps.append(float((top[:, 0] - top[:, 1]).min()))
+
+    hook = codec.model.to_event_switch.register_forward_hook(on_switch)
+    try:
+        enc = codec.encode(enc_input)
+    finally:
+        hook.remove()
+    vecs_q, sched_q, _ = quantize_events(enc.vecs, enc.schedules, "f16")
+    own = (vecs_q, sched_q)
+    if wire is not None:
+        vecs_q, sched_q = (w.to(codec.device) for w in wire)
+    rendered = codec.render(vecs_q, sched_q)
+    with torch.no_grad():
+        _, shifts, gains = refine_event_alignment(target[..., :half], rendered[..., :half],
+                                                  max_shift=max_shift)
+    refined = codec.decode(SIAMEncoding(vecs_q, sched_q, rendered, gains.half().float(), shifts))
+    out = dict(vecs=enc.vecs, frames=enc.schedules.argmax(-1), channels=enc.channels,
+               wire_vecs=own[0], wire_sched=own[1], wire=rendered, shifts=shifts,
+               raw=enc.channels.sum(1, keepdim=True), refined=refined)
+    return {k: v.detach().cpu() for k, v in out.items()}, min(gaps)
+
+
+def first_half_snr(target, recon):
+    """SNR in dB of ``recon`` against ``target`` over the first half, the
+    span the streaming mask lets a window's events cover."""
+    import torch
+
+    half = target.shape[-1] // 2
+    t, r = target.double()[..., :half], recon.double()[..., :half]
+    return float(10 * torch.log10(t.pow(2).sum() / (t - r).pow(2).sum()))
+
+
+def siam_phase(dev, cfg, sync):
+    """Phase 7, the SIAM codec's serving path (BASELINE #4) at full width,
+    launch counts set to 0 first and read last: (1) scripts/codec_rate.py's
+    first window (encode, f16 wire decode, alignment refinement) on the
+    card against the CPU from one state_dict and one noise draw; (2) the
+    handoff walk over the whole segment, card against CPU; (3) times of
+    encode, decode, refinement and walk, one encode traced, its peak
+    memory; (4) the encode's distance from float64 with the end
+    coefficients made real before each inverse FFT and without; (5) none
+    of the six kernels launched."""
+    import torch
+
+    from mptpu_torch import kernels
+    from mptpu_torch.data import synthetic_audio
+    from mptpu_torch.gen import overfitresonance
+    from mptpu_torch.models import (SIAMCodec, SIAMEncoding, fade_tail, quantize_events,
+                                    refine_event_alignment, siam, streaming_encode)
+    from mptpu_torch.models.siam import draw_noise
+    from mptpu_torch.ops import fft as fft_ops
+    from mptpu_torch.sparse import quantize
+
+    n, E, max_shift = cfg["n_samples"], cfg["n_events"], cfg["max_shift"]
+    on_card = dev.type == "cuda"
+    knobs = (quantize.RELU_SELECTION_LEAK, quantize.RELU_SELECTION_FLOOR)
+    quantize.set_selection_leak(0.02)    # scripts/codec_rate.py:163-168
+    quantize.set_selection_floor(0.02)
+    seg = synthetic_audio(cfg["walk_samples"], 22050, n_events=cfg["audio_events"], seed=3,
+                          sustained=True).reshape(1, 1, -1)
+    kernels.reset_launches()
+    t_phase = time.perf_counter()
+
+    # 1. the first window, the card against the CPU
+    model = siam_model(dev, cfg)
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    noise = draw_noise(model, (E, 1), torch.Generator(device=dev).manual_seed(0))
+    cpu_model = siam_model(torch.device("cpu"), cfg)
+    cpu_model.load_state_dict(state)
+    codecs = {"card": SIAMCodec(model=model, checkpoint_dir=None, noise=noise),
+              "CPU": SIAMCodec(model=cpu_model, checkpoint_dir=None, noise=noise.cpu())}
+    target = {k: torch.from_numpy(seg[..., :n].copy()).to(c.device) for k, c in codecs.items()}
+    enc_input = {k: target[k] * fade_tail(n, device=c.device) for k, c in codecs.items()}
+    runs, host_ms, wire = {}, {}, None
+    for k, c in codecs.items():   # the CPU decodes the card's wire bits
+        t0 = time.perf_counter()
+        runs[k] = first_window(c, target[k], enc_input[k], max_shift, wire)
+        host_ms[k] = (time.perf_counter() - t0) * 1e3
+        wire = (runs[k][0]["wire_vecs"], runs[k][0]["wire_sched"])
+    (card, gap), (cpu, cpu_gap) = runs["card"], runs["CPU"]
+    flips = [int((card[m] != cpu[m]).sum()) for m in ("wire_vecs", "wire_sched")]
+    tgt = target["CPU"].cpu()
+    snrs = {k: {m: first_half_snr(tgt, r[0][m]) for m in ("raw", "refined")}
+            for k, r in runs.items()}
+    for k, r in runs.items():
+        snrs[k]["wire"] = first_half_snr(tgt, r[0]["wire"].sum(1, keepdim=True))
+    errs = {m: max_err([(card[m], cpu[m])]) / max(float(cpu[m].abs().max()), 1e-30)
+            for m in ("vecs", "channels", "wire", "refined")}
+    print(f"siam 1, scripts/codec_rate.py's first window ({n} samples, {E} events, "
+          f"hidden {cfg['hidden']}, context {cfg['context_dim']}, STFT {cfg['window']}/"
+          f"{cfg['step']}; {sum(p.numel() for p in model.parameters())} parameters from seed 0), "
+          f"card against CPU from one state_dict and one noise draw: frames "
+          f"{'identical' if torch.equal(card['frames'], cpu['frames']) else 'DIFFERENT'} "
+          f"({card['frames'][0].tolist()}), smallest top-1 / top-2 attention gap of the steps "
+          f"{gap:.4e} (CPU {cpu_gap:.4e}); shifts "
+          f"{'identical' if torch.equal(card['shifts'], cpu['shifts']) else 'DIFFERENT'}; max abs "
+          f"err over the largest: " + ", ".join(f"{m} {e:.2e}" for m, e in errs.items())
+          + "; first-half SNR dB card / CPU: " + ", ".join(
+              f"{m} {snrs['card'][m]:.4f} / {snrs['CPU'][m]:.4f}" for m in ("raw", "wire",
+                                                                            "refined"))
+          + f"; the two encodes' f16 wire values differ in {flips[0]} of {card['vecs'].numel()} "
+          f"vector lanes and {flips[1]} amplitudes (both decodes read the card's); host ms card "
+          f"{host_ms['card']:.0f} (first call), CPU {host_ms['CPU']:.0f}")
+    for k, (r, _) in runs.items():
+        if not all(torch.isfinite(v.double()).all() for v in r.values()):
+            fail(f"siam: non-finite outputs on the {k}")
+    if tuple(card["channels"].shape) != (1, E, n):
+        fail(f"siam: channels {tuple(card['channels'].shape)}, not (1, {E}, {n})")
+    if not torch.equal(card["frames"], cpu["frames"]):
+        fail("siam: event frames differ between the card and the CPU")
+    if not torch.equal(card["shifts"], cpu["shifts"]):
+        fail("siam: refinement shifts differ between the card and the CPU")
+    assert_close("siam vecs, card against CPU", card["vecs"], cpu["vecs"],
+                 dict(rtol=1e-4, atol=1e-6 * float(cpu["vecs"].abs().max())))
+    for m in ("channels", "wire", "refined"):
+        if errs[m] > SIAM_TOL:
+            fail(f"siam {m}: card {errs[m]:.2e} of the largest from the CPU, above {SIAM_TOL}")
+    for m in ("raw", "wire", "refined"):
+        if abs(snrs["card"][m] - snrs["CPU"][m]) >= 0.01:
+            fail(f"siam {m} SNR: card {snrs['card'][m]:.4f} dB, CPU {snrs['CPU'][m]:.4f} dB")
+
+    # 2. the handoff walk over the whole segment, with the fixed noise
+    def walk(codec):
+        audio = torch.from_numpy(seg).to(codec.device)
+        return streaming_encode(codec.model, audio, codec.noise, fixed_noise=True)
+
+    walks = {k: walk(c).cpu() for k, c in codecs.items()}
+    walk_err = max_err([(walks["card"], walks["CPU"])]) / float(walks["CPU"].abs().max())
+    frames = n // cfg["step"]
+    windows = len(range(0, seg.shape[-1] // cfg["step"] - frames, frames // 2))
+    print(f"siam 2, the handoff walk over {seg.shape[-1]} samples ({windows} windows), card "
+          f"against CPU: max abs err {walk_err:.2e} of the largest")
+    if not torch.isfinite(walks["card"]).all() or walk_err > SIAM_TOL:
+        fail(f"siam walk: card {walk_err:.2e} of the largest from the CPU, above {SIAM_TOL}")
+    del cpu_model, codecs["CPU"]
+
+    # 3. times on the card, its trace and peak memory
+    codec, x, tg = codecs["card"], enc_input["card"], target["card"]
+    enc = codec.encode(x)
+    vecs_q, sched_q, _ = quantize_events(enc.vecs, enc.schedules, "f16")
+    wire = SIAMEncoding(vecs_q, sched_q, codec.render(vecs_q, sched_q))
+
+    def refine():
+        with torch.no_grad():
+            return refine_event_alignment(tg[..., : n // 2], wire.channels[..., : n // 2],
+                                          max_shift=max_shift)
+
+    calls = {"encode": lambda: codec.encode(x), "decode": lambda: codec.decode(wire),
+             "refine": refine, "walk": lambda: walk(codec)}
+    times = {}
+    for name, fn in calls.items():
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(cfg["reps"]):
+            fn()
+        sync()
+        times[name] = (time.perf_counter() - t0) * 1e3 / cfg["reps"]
+    print(f"siam 3, host ms (mean of {cfg['reps']} after a warm-up, ending in a "
+          "synchronisation): " + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
+    if on_card:
+        traced = device_time_by_kernel(lambda: codec.encode(x), sync)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        codec.encode(x)
+        sync()
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"siam 3, one encode traced: {traced[2]} kernel launches ({traced[2] / E:.0f} a "
+              f"step); peak memory {peak / 2**30:.3f} GiB (from {base / 2**30:.3f} GiB before)")
+        print(busy_line("siam encode, traced", traced, times["encode"]))
+        # one step of the 32, by part: each part's launches, busy time, and
+        # its time between CUDA events against the host clock
+        rows = []
+        with torch.no_grad():
+            spec = model.transform(x)
+            vecs, sched = model.encode(spec)
+            ch = model.generate(vecs, sched, noise=noise[0], spec=spec)
+            parts = {"encoder and selection": lambda: model.encode(spec),
+                     "heads and decoder": lambda: model.generate(vecs, sched, noise=noise[0],
+                                                                 spec=spec),
+                     "transform and subtract": lambda: spec - model.transform(ch)}
+            for name, fn in parts.items():
+                _, dev_ms, part_ms = timed(fn, 5, dev, host=True)
+                tr = device_time_by_kernel(fn, sync)
+                rows.append(f"{name}: {tr[2]} launches, busy {tr[1]:.3f} ms, {dev_ms:.3f} ms "
+                            f"between CUDA events, {part_ms:.3f} ms host clock")
+        print("siam 3, one step of the encode by part (mean of 5 calls after a warm-up; busy "
+              "from one traced call): " + "; ".join(rows))
+    else:
+        print("siam 3, trace, parts and peak memory not measured (no card)")
+
+    # 4. trap (b): the encode's distance from float64, with and without real ends
+    model64 = siam_model(dev, cfg, torch.float64)
+    model64.load_state_dict(state)
+    codec64 = SIAMCodec(model=model64, checkpoint_dir=None, noise=noise.double())
+    ref = codec64.encode(x.double()).channels
+
+    def distance(c):
+        ch = c.encode(x).channels
+        return float((ch.double() - ref).abs().max() / ref.abs().max())
+
+    with_ends = distance(codec)
+    holders = (fft_ops, overfitresonance, siam)
+    kept = [m.real_ends for m in holders]
+    for m in holders:
+        m.real_ends = lambda spec: spec
+    try:
+        without = distance(codec)
+    finally:
+        for m, f in zip(holders, kept):
+            m.real_ends = f
+    print(f"siam 4, the encode's channels in float32 on the {'card' if on_card else 'CPU'} "
+          f"against float64 on the same device, max abs err over the largest: {with_ends:.2e} "
+          f"with the end coefficients' imaginary parts zeroed before each inverse FFT, "
+          f"{without:.2e} without")
+    del model64, codec64, ref
+    # the inverse alone at the path's two lengths (SpectralResonance and the
+    # spectral filter at n, fft_shift at 3 n), on spectra with non-zero ends
+    errs = {}
+    for length in (n, 3 * n):
+        g = torch.Generator().manual_seed(length)
+        spec = torch.complex(torch.randn(4, length // 2 + 1, generator=g, dtype=torch.float64),
+                             torch.randn(4, length // 2 + 1, generator=g, dtype=torch.float64))
+        spec = spec.to(dev)
+        ref = torch.fft.irfft(fft_ops.real_ends(spec), n=length)
+        for label, ends in (("zeroed", fft_ops.real_ends), ("raw", lambda z: z)):
+            out = torch.fft.irfft(ends(spec.to(torch.complex64)), n=length)
+            errs[length, label] = float((out.double() - ref).abs().max() / ref.abs().max())
+    print("siam 4, the float32 inverse real FFT alone against float64 with the ends zeroed, max "
+          "abs err over the largest: " + "; ".join(
+              f"{length} samples {errs[length, 'zeroed']:.2e} zeroed, {errs[length, 'raw']:.2e} raw"
+              for length in (n, 3 * n)))
+
+    # 5. none of the six kernels
+    quantize.set_selection_leak(knobs[0])
+    quantize.set_selection_floor(knobs[1])
+    launches = dict(kernels.LAUNCHES)
+    if launches != {k: 0 for k in launches}:
+        fail(f"siam phase: launches {launches}, expected none")
+    print(f"siam launches {launches}; the phase took {time.perf_counter() - t_phase:.1f} s "
+          f"(host clock)")
+
+
+def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM):
+    """Phases 2-7 on device ``dev``; returns the kernels' records."""
     import torch
     import torch.nn.functional as F
 
@@ -1623,6 +1925,8 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT):
 
     splat_phase(dev, splat, sync)
 
+    siam_phase(dev, siam, sync)
+
     # ---- phase 5: per-kernel times
     fm, bm, res = encode_state(sig_b, d2_b, geom)
     windows = res[:, tail_idx].contiguous()
@@ -1781,6 +2085,7 @@ def main() -> int:
         extra = {k: v for k, v in r.items() if k not in KEYS}
         line.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          **{k: r[k] for k in KEYS}, **extra))
+    print(smi)   # again here, so that the end of the output names the card
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -10,6 +10,8 @@ names.
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -77,10 +79,27 @@ def _copy_dense(linear: torch.nn.Linear, leaf, path: str) -> None:
             linear.bias.copy_(torch.from_numpy(bias))
 
 
+def _copy_conv(conv: torch.nn.Conv1d, leaf, path: str) -> None:
+    """Copy a flax ``Conv`` (``{"kernel": (k, in, out), "bias": (out,)}``)
+    into ``conv``, whose weight is (out, in, k). Raises on any other name
+    or shape."""
+    if set(leaf) != {"kernel", "bias"} or conv.bias is None:
+        raise ValueError(f"{path}: flax entries {sorted(leaf)} against an nn.Conv1d")
+    weight = np.asarray(leaf["kernel"], dtype=np.float32).transpose(2, 1, 0)
+    bias = np.array(leaf["bias"], dtype=np.float32)
+    if weight.shape != tuple(conv.weight.shape) or bias.shape != tuple(conv.bias.shape):
+        raise ValueError(f"{path}: kernel {weight.T.shape} and bias {bias.shape} against the "
+                         f"module's weight {tuple(conv.weight.shape)} (out, in, k)")
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(weight.copy()))
+        conv.bias.copy_(torch.from_numpy(bias))
+
+
 def _copy_tree(module: torch.nn.Module, tree, path: str) -> None:
     """Copy a flax parameter tree into ``module`` by name: a ``Dense`` leaf
-    into the ``nn.Linear`` child of its name, an array into the parameter
-    of its name, a subtree into the child of its name. The names must be
+    into the ``nn.Linear`` child of its name, a ``Conv`` leaf into the
+    ``nn.Conv1d`` of its name, an array into the parameter of its name, a
+    subtree into the child of its name. The names must be
     exactly the module's own parameters and its children that hold any."""
     own = {name for name, _ in module.named_parameters(recurse=False)}
     own |= {name for name, child in module.named_children()
@@ -95,6 +114,10 @@ def _copy_tree(module: torch.nn.Module, tree, path: str) -> None:
             if not isinstance(node, dict):
                 raise ValueError(f"{where}: an array against an nn.Linear")
             _copy_dense(target, node, where)
+        elif isinstance(target, torch.nn.Conv1d):
+            if not isinstance(node, dict):
+                raise ValueError(f"{where}: an array against an nn.Conv1d")
+            _copy_conv(target, node, where)
         elif isinstance(target, torch.nn.Parameter):
             if isinstance(node, dict):
                 raise ValueError(f"{where}: a subtree against a parameter")
@@ -136,4 +159,26 @@ def splat_from_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
     on any name or shape that does not match."""
     params = variables.get("params", variables)
     _copy_tree(module, {SPLAT_CHILDREN.get(k, k): v for k, v in params.items()}, "")
+    return module
+
+
+# SIAM layers that a flag of the model builds, by flax name
+SIAM_FLAGGED = {"spec_skip_proj": "spectral_skip", "spec_filter_gate": "spectral_filter"}
+
+
+def siam_from_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
+    """Copy a flax tree of ``mptpu``'s ``SIAMModel`` (``{"params": ...}``
+    or its ``"params"`` entry, e.g. a checkpoint's) into the port's
+    ``SIAMModel``, in place, and return it. The model is built from its
+    own flags: the tree's layer of a flag the model has off
+    (``spec_skip_proj``, ``spec_filter_gate``; flax ignores such a leaf
+    too) is skipped with a warning that names it. Raises on any other
+    name or shape that does not match."""
+    params = variables.get("params", variables)
+    skipped = sorted(k for k, flag in SIAM_FLAGGED.items()
+                     if k in params and not getattr(module, flag))
+    if skipped:
+        warnings.warn(f"siam_from_flax: skipped {skipped}, layers of flags the model has off",
+                      stacklevel=2)
+    _copy_tree(module, {k: v for k, v in params.items() if k not in skipped}, "")
     return module

@@ -12,7 +12,7 @@ from .schedule import (
     interpretable_fft_shift,
 )
 from .splat import SplattingEventGenerator
-from .transfer import gaussian_bandpass_filtered, make_waves
+from .transfer import damped_harmonic_oscillator, gaussian_bandpass_filtered, make_waves
 
 __all__ = [
     "EventGenerator",
@@ -28,6 +28,7 @@ __all__ = [
     "hierarchical_dirac",
     "interpretable_fft_shift",
     "SplattingEventGenerator",
+    "damped_harmonic_oscillator",
     "gaussian_bandpass_filtered",
     "make_waves",
 ]

@@ -1,6 +1,7 @@
-"""Waveform tables and Gaussian band-pass filtering (counterpart of
-``make_waves`` and ``gaussian_bandpass_filtered`` in
-``mptpu/gen/transfer.py``; the rest of that module is not ported yet)."""
+"""Waveform tables, the damped harmonic oscillator and Gaussian band-pass
+filtering (counterpart of ``make_waves``, ``damped_harmonic_oscillator``
+and ``gaussian_bandpass_filtered`` in ``mptpu/gen/transfer.py``; the rest
+of that module is not ported yet)."""
 
 from __future__ import annotations
 
@@ -40,3 +41,25 @@ def gaussian_bandpass_filtered(means: torch.Tensor, stds: torch.Tensor, signals:
     gaussians = pdf2(means, stds, samples // 2 + 1, normalize=normalize)
     spec = torch.fft.rfft(signals, dim=-1)
     return torch.fft.irfft(spec * gaussians, n=samples, dim=-1)
+
+
+def damped_harmonic_oscillator(
+    time: torch.Tensor,
+    mass: torch.Tensor,
+    damping: torch.Tensor,
+    tension: torch.Tensor,
+    initial_displacement: torch.Tensor,
+    initial_velocity: float,
+    do_clamp: bool = True,
+) -> torch.Tensor:
+    """Closed-form damped oscillator ``a * exp(-x t) * cos(omega t - phi)``
+    with ``x = damping / (2 mass)``; the arguments broadcast. ``do_clamp``
+    keeps ``tension - x^2`` at least 1e-12, else its magnitude is taken."""
+    x = damping / (2 * mass)
+    if do_clamp:
+        omega = torch.sqrt(torch.clamp_min(tension - x**2, 1e-12))
+    else:
+        omega = torch.sqrt(torch.abs(tension - x**2))
+    phi = torch.atan2(initial_velocity + x * initial_displacement, initial_displacement * omega)
+    a = initial_displacement / torch.cos(phi)
+    return a * torch.exp(-x * time) * torch.cos(omega * time - phi)

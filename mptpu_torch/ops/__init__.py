@@ -8,8 +8,10 @@ from .fft import (
     cexp,
     rfft,
     irfft,
+    real_ends,
     fft_convolve,
     simple_fft_convolve,
+    fft_shift,
 )
 from .correlation import mp_correlate, torch_style_conv
 from .norms import unit_norm, max_norm, limit_norm, example_norm
@@ -46,8 +48,10 @@ __all__ = [
     "cexp",
     "rfft",
     "irfft",
+    "real_ends",
     "fft_convolve",
     "simple_fft_convolve",
+    "fft_shift",
     "mp_correlate",
     "torch_style_conv",
     "unit_norm",

@@ -14,7 +14,7 @@ from typing import Dict, List
 
 import torch
 
-from .fft import irfft, rfft
+from .fft import irfft, real_ends as _real_ends, rfft
 
 
 def band_sizes(n_samples: int, min_size: int) -> List[int]:
@@ -25,20 +25,6 @@ def band_sizes(n_samples: int, min_size: int) -> List[int]:
         sizes.append(current)
         current *= 2
     return sizes
-
-
-def _real_ends(spec: torch.Tensor) -> torch.Tensor:
-    """``spec`` with the imaginary parts of its first and last coefficients
-    set to 0, which is what an inverse real FFT of even length reads of
-    them: pocketfft (numpy, XLA, torch on the CPU) drops them, but cuFFT's
-    float32 inverse does not at every length (on an H100 the 8,192- and
-    16,384-sample bands came out 4e-4 of their largest from float64). A
-    band's last
-    coefficient lies inside the full spectrum, where its imaginary part is
-    not 0."""
-    keep = torch.ones(spec.shape[-1], dtype=spec.real.dtype, device=spec.device)
-    keep[0] = keep[-1] = 0.0
-    return torch.complex(spec.real, spec.imag * keep)
 
 
 def fft_frequency_decompose(x: torch.Tensor, min_size: int) -> Dict[int, torch.Tensor]:

@@ -1,5 +1,5 @@
-"""FFT convolution primitives and complex construction (counterpart of
-``mptpu/ops/fft.py``; ``fft_shift`` and ``randomize_phase`` are not ported
+"""FFT convolution and shift primitives and complex construction
+(counterpart of ``mptpu/ops/fft.py``; ``randomize_phase`` is not ported
 yet).
 
 Real FFTs over the last axis; ``norm="ortho"`` is passed straight to
@@ -8,6 +8,7 @@ Real FFTs over the last axis; ``norm="ortho"`` is passed straight to
 
 from __future__ import annotations
 
+import math
 from functools import reduce
 
 import torch
@@ -41,6 +42,20 @@ def irfft(x: torch.Tensor, n: int | None = None, axis: int = -1, norm: str | Non
     return torch.fft.irfft(x, n=n, dim=axis, norm=norm)
 
 
+def real_ends(spec: torch.Tensor) -> torch.Tensor:
+    """``spec`` with the imaginary parts of its first and last coefficients
+    set to 0, which is what an inverse real FFT of even length reads of
+    them: pocketfft (numpy, XLA, torch on the CPU) drops them, but cuFFT's
+    float32 inverse does not at every length (on an H100 the 8,192- and
+    16,384-sample octave bands came out 4e-4 of their largest from float64).
+    Every spectrum that is not an rFFT's own (a slice of a larger one, a
+    product with a complex ramp or envelope, one built from real numbers)
+    goes through this before its inverse."""
+    keep = torch.ones(spec.shape[-1], dtype=spec.real.dtype, device=spec.device)
+    keep[0] = keep[-1] = 0.0
+    return torch.complex(spec.real, spec.imag * keep)
+
+
 def fft_convolve(*args: torch.Tensor, norm: str | None = None) -> torch.Tensor:
     """Multi-argument FFT convolution: each input is zero-padded to twice
     its length, the spectra are multiplied, and the product is trimmed
@@ -57,3 +72,18 @@ def simple_fft_convolve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     sa = rfft(a, n=2 * n, norm="ortho")
     sb = rfft(b, n=2 * n, norm="ortho")
     return irfft(sa * sb, n=2 * n, norm="ortho")[..., :n]
+
+
+def fft_shift(a: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """Fractional delay by a frequency-domain phase ramp: ``shift`` in
+    [0, 1] moves the signal by up to ``n_samples / 3`` samples. The signal
+    is padded to 3x its length, so shifted content does not wrap around."""
+    n_samples = a.shape[-1]
+    shift_samples = shift * n_samples * (1.0 / 3.0)
+    padded_len = n_samples * 3
+    spec = torch.fft.rfft(a, n=padded_len, dim=-1)
+    n_coeffs = spec.shape[-1]
+    k = torch.arange(n_coeffs, dtype=a.dtype, device=a.device)
+    theta = -(k * 2.0 * math.pi / n_coeffs) * shift_samples
+    samples = torch.fft.irfft(real_ends(spec * cexp(theta)), n=padded_len, dim=-1)
+    return samples[..., :n_samples]

@@ -3,7 +3,8 @@ batched: gathers and scatters over the whole batch at once.
 
 ``torch.topk`` makes no promise about the order of equal values, where
 ``lax.top_k`` puts the lower index first; on inputs without ties the two
-agree.
+agree. For k = 1 the port takes ``torch.argmax``, whose first index is
+``lax.top_k``'s on ties too (a dead attention of all zeros picks 0).
 """
 
 from __future__ import annotations
@@ -28,6 +29,15 @@ def _scatter(size: int, indices: torch.Tensor, values: torch.Tensor) -> torch.Te
     """(batch, size) zeros with ``values`` set at ``indices``, row by row."""
     out = torch.zeros((indices.shape[0], size), dtype=values.dtype, device=values.device)
     return out.scatter(-1, indices, values)
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """(values, indices) of the ``k`` largest entries of the last axis; for
+    ``k == 1`` the first of equal largest entries."""
+    if k == 1:
+        idx = torch.argmax(x, dim=-1, keepdim=True)
+        return x.gather(-1, idx), idx
+    return torch.topk(x, k, dim=-1)
 
 
 def sparsify(
@@ -58,7 +68,7 @@ def sparsify(
     else:
         sharpened = flat
 
-    _, indices = torch.topk(sharpened, n_to_keep, dim=-1)
+    _, indices = _top_k(sharpened, n_to_keep)
     values = flat.gather(-1, indices)
     out = _scatter(flat.shape[-1], indices, values).reshape(orig_shape)
 
@@ -84,7 +94,7 @@ def sparsify2(x: torch.Tensor, n_to_keep: int = 8):
     one_hot: (batch, n_to_keep, channels), event k's value at its channel.
     """
     batch, channels, time = x.shape
-    values, indices = torch.topk(x.reshape(batch, -1), n_to_keep, dim=-1)
+    values, indices = _top_k(x.reshape(batch, -1), n_to_keep)
     ch, t = indices // time, indices % time
     k_range = torch.arange(n_to_keep, device=x.device)
     sparse = _scatter(channels * time, indices, values).reshape(batch, channels, time)
@@ -111,7 +121,7 @@ def sparsify_vectors(
     with ``dense`` the latents put back at their times in zeros like ``x``.
     """
     batch, channels, time = x.shape
-    values, indices = torch.topk(attn.reshape(batch, time), n_to_keep, dim=-1)
+    values, indices = _top_k(attn.reshape(batch, time), n_to_keep)
     if normalize:
         # kept literal: 1 with zero gradient, but exactly 0 in float32 where
         # values reach ~1e9, so that a blown-up switch zeroes its own vector
@@ -141,7 +151,7 @@ def to_key_points(x: torch.Tensor, n_to_keep: int = 64) -> torch.Tensor:
     readings of the spans through each top-k entry. The index arithmetic
     is ``mptpu``'s as written (``indices % width``, ``indices // height``)."""
     batch, width, height = x.shape
-    values, indices = torch.topk(x.reshape(batch, -1), n_to_keep, dim=-1)
+    values, indices = _top_k(x.reshape(batch, -1), n_to_keep)
     row_index = indices % width
     col_index = indices // height
     w_range = torch.linspace(0, 1, width, dtype=x.dtype, device=x.device)

@@ -128,6 +128,25 @@ def test_sparsify_vectors_matches_mptpu(normalize, dense):
                 attn, seed=7)
 
 
+@pytest.mark.parametrize("length", [8, 512])
+def test_top_one_ties_break_at_the_first_index(length):
+    """k = 1 on equal values takes the first, as lax.top_k does: on all
+    zeros (a dead attention) and on two equal peaks. torch.topk gave index
+    6 of 8 zeros on the CPU, so k = 1 goes through torch.argmax."""
+    x = np.zeros((3, 1, length), np.float32)
+    x[1, 0, [length // 4, length // 2]] = 2.0
+    vecs = normal((3, 4, length), 30)
+    want = jsp.sparsify(jnp.asarray(x), 1, return_indices=True)
+    got = tsp.sparsify(torch.from_numpy(x), 1, return_indices=True)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert got[1][:, 0].tolist() == [0, length // 4, 0]
+    jv = jsp.sparsify_vectors(jnp.asarray(vecs), jnp.asarray(x), 1)
+    tv = tsp.sparsify_vectors(torch.from_numpy(vecs), torch.from_numpy(x), 1)
+    np.testing.assert_array_equal(tv[1].numpy(), np.asarray(jv[1]))
+    np.testing.assert_array_equal(tv[0].numpy(), np.asarray(jv[0]))
+
+
 def test_encourage_sparsity_loss_matches_mptpu():
     x = normal((2, 8, 32), 8)
     assert_same(lambda v: jsp.encourage_sparsity_loss(v, n_unpenalized=20),
