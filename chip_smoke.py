@@ -3,8 +3,9 @@
 check it: the greedy matching-pursuit encoder at the bench configuration,
 multiband dictionary learning at its full width, the rest of the sparse
 layer (OMP refit, feature-map loss, top-k, quantize, sharded MP), the
-audio-splatting overfit at its full width, and the SIAM codec's serving
-path at its full width.
+audio-splatting overfit at its full width, the SIAM codec's serving
+path at its full width, and the playable state-space model's overfit at
+its full width.
 
     python3 chip_smoke.py
 
@@ -82,6 +83,25 @@ Phases, each printing lines (any failure exits non-zero):
    encode traced (launches, busy and idle share) and its peak memory; the
    encode and the bare inverse FFT against float64 with and without the
    end coefficients made real; no launch of the six kernels;
+8. (after phase 7, before phase 5's times) the playable state-space model
+   (BASELINE #5, ``scripts/ssm_article.py``'s configuration: 2^18 samples,
+   window 128, control plane 64, state 128, the top 512 sites; Adam at lr
+   1e-3, where the script's 1e-2 makes the loss rise first) on its target from ``get_one_audio_segment(2**18, seed=0)``, read
+   from the demo corpus that ``ensure_demo_dataset`` writes under a
+   temporary ``MPTPU_CACHE``: one forward and backward on the card against
+   the CPU from one ``state_dict`` (audio and boundary differences within
+   1e-5 of their largest, loss rtol 1e-4; the gradients by group in float64
+   within 1e-8 of their largest, in float32 printed beside each device's
+   distance from float64), the card's float32 audio against float64 on the
+   card, cuDNN's RNN with TF32 allowed and not against float64;
+   ``train_model_for_segment`` for 5 warm-up and 100 timed steps (steps/s,
+   the loss must fall), one step traced (launches, busy and idle share)
+   and its peak memory, ``random`` and ``rolled_control_plane`` finite and
+   max-normed, the weights JSON round trip; ``CompressionModel`` at its
+   full width (2^17 samples, window 1024, control 32, state 64, complex;
+   ``param_count`` 621,866), forward and the gradient of sum(|audio|), and
+   ``SSM`` and ``StateSpaceModelEventGenerator`` forward at BASELINE #5's
+   widths, each on the card against the CPU; no launch of the six kernels;
 5. each kernel's time beside its plain version's, its bound and, for the
    boundary kernel, one ``torch.matmul`` computing the same product; the two
    step kernels per step from a chain of launches, with and without
@@ -89,7 +109,7 @@ Phases, each printing lines (any failure exits non-zero):
    multiband band beside the whole-encode kernel doing the same steps in one
    launch; the two whole-encode kernels and the cluster step kernel by
    cluster size, with the clusters the card holds at once beside each;
-8. a ``kernels`` JSON line, then the result line
+9. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It needs CUDA and the ``mptpu_torch`` package beside it, and exits with
@@ -134,6 +154,30 @@ SIAM = dict(n_samples=2**17, n_events=32, hidden=128, context_dim=32, window=204
 # phase 7, the card against the CPU: channels, the wire decode, the refined decode
 # and the walk within this share of their largest magnitude
 SIAM_TOL = 1e-4
+# scripts/ssm_article.py:63-99 (BASELINE #5: 2^18 samples, window 128, control plane 64,
+# state 128, the top 512 sites; 188,416 parameters), driven for 5 + 100 steps at lr 1e-3:
+# at the script's 1e-2 the loss rises 350- to 990-fold within 33 to 149 steps on each file
+# of the demo corpus, and at 1e-3 it falls on each (tools/ssm_lr.py; ROADMAP.md, queue C); the
+# codec-sized CompressionModel (mptpu/gen/ssm_complex.py:102-124: 2^17 samples, window
+# 1024, control 32, state 64; param_count 621,866); SSM and the SSM event generator at
+# the overfit's widths over its 2,048 frames, 4 events
+SSM = dict(n_samples=2**18, window=128, control=64, state=128, sites=512, params=188_416,
+           lr=1e-3, warmup=5, steps=100,
+           compression=dict(n_samples=2**17, window=1024, control=32, state=64, params=621_866),
+           generator=dict(frames=2048, events=4, hyper=16, latent=8))
+# the same at a small size, for a rehearsal on the CPU
+SSM_SMALL = dict(n_samples=2**12, window=32, control=8, state=16, sites=32, params=2_560,
+                 lr=1e-2, warmup=1, steps=3,
+                 compression=dict(n_samples=2**12, window=64, control=8, state=16, params=4_882),
+                 generator=dict(frames=32, events=2, hyper=8, latent=4))
+# the SSM overfit's parameters by group: the control plane, the input projection, the
+# RNN, the output projection
+SSM_GROUPS = {"control": ["control"], "proj": ["ssm.proj"],
+              "rnn": ["ssm.rnn.weight_ih_l0", "ssm.rnn.weight_hh_l0"], "out_proj": ["ssm.out_proj"]}
+# phase 8, the card against the CPU: audio and boundary differences (of their largest),
+# loss (relative), gradients (of each group's largest; in float64 on both sides, and
+# CompressionModel's, whose loss has no such noise, in float32)
+SSM_TOL = dict(audio=1e-5, loss=1e-4, gradients=1e-4, gradients64=1e-8)
 # the probe's kinds: label -> (kind, programmatic)
 PROBE_KINDS = {"grid": ("grid", False), "grid chained": ("grid", True), "fori": ("fori", False)}
 HOLD_CYCLES = 20_000_000   # about 10 ms of device spinning ahead of a timed run
@@ -1516,8 +1560,321 @@ def siam_phase(dev, cfg, sync):
           f"(host clock)")
 
 
-def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM):
-    """Phases 2-7 on device ``dev``; returns the kernels' records."""
+def share_err(a, b) -> float:
+    """max |a - b| over max |b| in float64 (complex128 for complex tensors,
+    their differences as magnitudes), on the host."""
+    import torch
+
+    wide = torch.complex128 if b.is_complex() else torch.float64
+    a, b = a.detach().cpu().to(wide), b.detach().cpu().to(wide)
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def ssm_phase(dev, cfg, sync):
+    """Phase 8, the playable state-space model (BASELINE #5,
+    scripts/ssm_article.py's configuration), launch counts set to 0 first
+    and read last, the demo corpus written under a temporary MPTPU_CACHE:
+    (1) the target from ``get_one_audio_segment(seed=0)``; (2) one forward
+    and backward of the overfit at full width on the card against the CPU
+    from one state_dict (audio, boundary differences, loss, gradients by
+    group), the card's float32 audio against float64 on the card, and
+    cuDNN's RNN with TF32 allowed and not against float64;
+    (3) ``train_model_for_segment`` on the card, warm-up then timed steps,
+    the loss falling, one step traced and its peak memory, ``random`` and
+    ``rolled_control_plane``, the weights JSON round trip; (4)
+    ``CompressionModel`` at its full width, forward and the gradient of
+    sum(|audio|), card against CPU, its ``param_count``; (5) ``SSM`` and
+    ``StateSpaceModelEventGenerator`` forward at BASELINE #5's widths, card
+    against CPU; (6) none of the six kernels launched."""
+    import os
+    import tempfile
+
+    import torch
+
+    from mptpu_torch import convert, kernels
+    from mptpu_torch.data import get_one_audio_segment
+    from mptpu_torch.gen import SSM, CompressionModel, StateSpaceModelEventGenerator, param_count
+    from mptpu_torch.models import OverfitControlPlane, generate_param_dict, train_model_for_segment
+    from mptpu_torch.models.ssm_overfit import (make_script_step, read_param_dict, ssm_loss,
+                                                transform)
+
+    n, window, cpd, state, sites = (cfg[k] for k in ("n_samples", "window", "control", "state",
+                                                      "sites"))
+    on_card = dev.type == "cuda"
+    saved = {k: os.environ.get(k) for k in ("MPTPU_CACHE", "AUDIO_PATH")}
+    tmp = tempfile.TemporaryDirectory()
+    os.environ["MPTPU_CACHE"] = tmp.name
+    os.environ.pop("AUDIO_PATH", None)
+    try:
+        kernels.reset_launches()
+        t_phase = time.perf_counter()
+
+        # 1. the target, from the demo corpus
+        t0 = time.perf_counter()
+        target = get_one_audio_segment(n, seed=0, device=dev)
+        print(f"ssm 1, the target: get_one_audio_segment({n}, seed=0) from the demo corpus "
+              f"written under a temporary MPTPU_CACHE, {tuple(target.shape)} on {target.device}, "
+              f"peak {float(target.abs().max()):.6f}, {(time.perf_counter() - t0) * 1e3:.0f} ms "
+              f"(host clock, the corpus written included)")
+        if tuple(target.shape) != (1, 1, n) or not torch.isfinite(target).all():
+            fail("ssm: the target is not finite or not (1, 1, n_samples)")
+
+        # 2. the card against the CPU, one forward and backward at full width
+        build = lambda device: OverfitControlPlane(cpd, window, state, n, window, sites,
+                                                   device=device)
+        model = build(dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        if n_params != cfg["params"]:
+            fail(f"ssm overfit: {n_params} parameters, expected {cfg['params']}")
+        state_dict = {k: v.cpu() for k, v in model.state_dict().items()}
+        groups = SSM_GROUPS
+
+        def forward_backward(device, dtype):
+            m = build(device)
+            m.load_state_dict(state_dict)
+            m = m.to(dtype)
+            tgt = target.to(device, dtype)
+            t0 = time.perf_counter()
+            audio, diff = m()
+            residual = transform(audio) - transform(tgt)
+            loss = torch.abs(residual).sum() + torch.abs(diff).sum()
+            names, params = zip(*m.named_parameters())
+            grads = torch.autograd.grad(loss, params)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            return (audio.detach(), diff.detach(), loss.detach(), dict(zip(names, grads)), ms,
+                    torch.sign(residual.detach()).cpu())
+
+        card = forward_backward(dev, torch.float32)
+        cpu = forward_backward(torch.device("cpu"), torch.float32)
+        card64 = forward_backward(dev, torch.float64)
+        cpu64 = forward_backward(torch.device("cpu"), torch.float64)
+        errs = {"audio": share_err(card[0], cpu[0]), "boundaries": share_err(card[1], cpu[1])}
+        loss_rel = abs(float(card[2]) - float(cpu[2])) / abs(float(cpu[2]))
+
+        def grad_errs(a, b):
+            return {g: max(share_err(a[3][k], b[3][k]) for k in names)
+                    for g, names in groups.items()}
+
+        pairs = {"card against CPU": grad_errs(card, cpu),
+                 "float64 card against CPU": grad_errs(card64, cpu64),
+                 "card float32 against float64": grad_errs(card, card64),
+                 "CPU float32 against float64": grad_errs(cpu, cpu64)}
+        flips = {"float32": int((card[5] != cpu[5]).sum()),
+                 "float64": int((card64[5] != cpu64[5]).sum()),
+                 "CPU float32 against float64": int((cpu[5] != cpu64[5]).sum())}
+        err64 = share_err(card[0], card64[0])
+        print(f"ssm 2, one forward and backward at full width ({n} samples, window {window}, "
+              f"control {cpd}, state {state}, {sites} sites; {n_params} parameters from seed 0), "
+              f"card against CPU from one state_dict, max abs err over the largest: audio "
+              f"{errs['audio']:.2e}, boundaries {errs['boundaries']:.2e}; loss "
+              f"{float(card[2]):.6f} against {float(cpu[2]):.6f} (relative {loss_rel:.2e}); "
+              f"the card's float32 audio against float64 on the card {err64:.2e}; host ms "
+              f"card {card[4]:.1f}, CPU {cpu[4]:.1f}, card float64 {card64[4]:.1f}, CPU float64 "
+              f"{cpu64[4]:.1f}")
+        print("ssm 2, gradients by group, max abs err over the largest: " + "; ".join(
+            f"{what}: " + ", ".join(f"{g} {e:.2e}" for g, e in ge.items())
+            for what, ge in pairs.items())
+            + f"; signs of the loss's l1 residual ({card[5].numel()} entries) that differ: "
+            + ", ".join(f"{k} {v}" for k, v in flips.items()))
+        if not (torch.isfinite(card[0]).all() and tuple(card[0].shape) == (1, 1, n)):
+            fail("ssm: the card's audio is not finite or not (1, 1, n_samples)")
+        for what, e in errs.items():
+            if e > SSM_TOL["audio"]:
+                fail(f"ssm {what}: card {e:.2e} of the largest from the CPU, above "
+                     f"{SSM_TOL['audio']}")
+        if loss_rel > SSM_TOL["loss"]:
+            fail(f"ssm: loss on the card {loss_rel:.2e} from the CPU's (relative)")
+        # in float32 the gradients of this l1 loss of spectral magnitudes are noise at
+        # 1e-4 of their largest on either device (a residual's sign flips where it
+        # is near 0), so the card is held against the CPU in float64
+        for g, e in pairs["float64 card against CPU"].items():
+            if e > SSM_TOL["gradients64"]:
+                fail(f"ssm gradients {g}, float64: card {e:.2e} of the largest from the CPU, "
+                     f"above {SSM_TOL['gradients64']}")
+        del card, cpu, card64, cpu64
+
+        # cuDNN's RNN with TF32 allowed and not, each against float64
+        with torch.no_grad():
+            proj = model.control_signal(model.control).transpose(1, 2) @ model.ssm.proj
+            rnn64 = torch.nn.RNN(window, state, nonlinearity="tanh", bias=False,
+                                 batch_first=True).to(dev, torch.float64)
+            rnn64.load_state_dict(model.ssm.rnn.state_dict())
+            ref = rnn64(proj.double())[0]
+            kept = torch.backends.cudnn.allow_tf32
+            tf32 = {}
+            try:
+                for flag in (True, False):
+                    torch.backends.cudnn.allow_tf32 = flag
+                    tf32[flag] = share_err(model.ssm.rnn(proj)[0], ref)
+            finally:
+                torch.backends.cudnn.allow_tf32 = kept
+        print(f"ssm 2, the RNN's states ({'cuDNN' if on_card else 'the CPU'}) against float64, "
+              f"max abs err over the largest: {tf32[True]:.2e} with "
+              f"torch.backends.cudnn.allow_tf32 True, {tf32[False]:.2e} with it False "
+              f"({'follows the flag' if tf32[True] > 10 * tf32[False] else 'the same either way'})")
+        if tf32[False] > SSM_TOL["audio"]:
+            fail(f"ssm: the RNN without TF32 {tf32[False]:.2e} of the largest from float64")
+        del model
+
+        # 3. the overfit on the card
+        fit = train_model_for_segment(n_samples=n, window_size=window, control_plane_dim=cpd,
+                                      state_dim=state, n_active_sites=sites,
+                                      n_iterations=cfg["steps"], lr=cfg["lr"],
+                                      warmup=cfg["warmup"], seed=0, device=dev)
+        losses = fit.losses
+        if fit.skipped or not all(np.isfinite(losses)):
+            fail(f"ssm overfit: {fit.skipped} steps with a non-finite loss")
+        if not losses[-1] < losses[0]:
+            fail(f"ssm overfit: the loss did not fall ({losses[0]:.4f} -> {losses[-1]:.4f})")
+        if not torch.equal(fit.target, target):
+            fail("ssm overfit: the trainer's target is not get_one_audio_segment(seed=0)'s")
+        step_ms = 1e3 / fit.steps_per_sec
+        print(f"ssm 3, train_model_for_segment on the card: {cfg['warmup']} warm-up steps, "
+              f"then {cfg['steps']} timed: {fit.steps_per_sec:.3f} steps/s ({step_ms:.3f} ms a "
+              f"step, host clock ending in a synchronisation); loss first step {losses[0]:.4f}, "
+              f"last {losses[-1]:.4f} (means of the first and last 10: "
+              f"{np.mean(losses[:10]):.4f}, {np.mean(losses[-10:]):.4f}); "
+              f"{fit.skipped} steps with a non-finite loss")
+        model = fit.model
+        with torch.no_grad():
+            t_spec = transform(target)
+        opt = torch.optim.Adam(model.parameters(), lr=cfg["lr"], betas=(0.9, 0.999), eps=1e-8)
+        step = make_script_step(lambda: ssm_loss(model, t_spec), opt)
+        step()
+        if on_card:
+            traced = device_time_by_kernel(step, sync)
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            step()
+            sync()
+            peak = torch.cuda.max_memory_allocated(dev)
+            print(f"ssm 3, one step traced: {traced[2]} kernel launches; peak memory "
+                  f"{peak / 2**30:.3f} GiB over a step (from {base / 2**30:.3f} GiB before)")
+            print(busy_line("ssm step, traced", traced, step_ms))
+        else:
+            print("ssm 3, one step: trace and peak memory not measured (no card)")
+        with torch.no_grad():
+            played = {"random": model.random(0.001, torch.Generator(device=dev).manual_seed(7)),
+                      "rolled": model.rolled_control_plane(
+                          generator=torch.Generator(device=dev).manual_seed(8))}
+        for what, audio in played.items():
+            peak_abs = float(audio.abs().max())
+            if not (torch.isfinite(audio).all() and tuple(audio.shape) == (1, 1, n)
+                    and 0.99 < peak_abs <= 1.0):
+                fail(f"ssm {what}: not finite, not (1, 1, n_samples) or not max-normed "
+                     f"(peak {peak_abs})")
+        weights = json.loads(json.dumps(generate_param_dict(model)))
+        back = convert.ssm_from_flax(build(dev), read_param_dict(weights))
+        same = all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                     back.state_dict().values()))
+        if not same:
+            fail("ssm: the weights JSON does not give back the parameters")
+        print(f"ssm 3, random (p 0.001, seed 7) and rolled (seed 8) control planes: finite, "
+              f"max-normed (peaks {', '.join(f'{float(a.abs().max()):.6f}' for a in played.values())}"
+              f"); the weights JSON ({len(weights)} leaves, "
+              f"{sum(len(v['data']) for v in weights.values())} base64 bytes) round-trips")
+        del fit, model, opt, back
+
+        # 4. CompressionModel at its full width
+        cc = cfg["compression"]
+        cm = CompressionModel(cc["control"], cc["window"], cc["state"], cc["n_samples"],
+                              device=dev)
+        count = param_count(cm)
+        if count != cc["params"]:
+            fail(f"CompressionModel: param_count {count}, expected {cc['params']}")
+        cm_state = {k: v.cpu() for k, v in cm.state_dict().items()}
+
+        def compression(device):
+            m = CompressionModel(cc["control"], cc["window"], cc["state"], cc["n_samples"],
+                                 device=device)
+            m.load_state_dict(cm_state)
+            t0 = time.perf_counter()
+            audio = m()
+            names, params = zip(*m.named_parameters())
+            grads = torch.autograd.grad(audio.abs().sum(), params)
+            sync()
+            return audio.detach(), dict(zip(names, grads)), (time.perf_counter() - t0) * 1e3
+
+        c_card, c_cpu = compression(dev), compression(torch.device("cpu"))
+        c_audio = share_err(c_card[0], c_cpu[0])
+        c_grads = {k: share_err(c_card[1][k], c_cpu[1][k]) for k in c_cpu[1]}
+        c_flips = int((torch.sign(c_card[0]).cpu() != torch.sign(c_cpu[0])).sum())
+        print(f"ssm 4, CompressionModel at full width ({cc['n_samples']} samples, window "
+              f"{cc['window']}, control {cc['control']}, state {cc['state']}, complex; "
+              f"param_count {count}), card against CPU from one state_dict, max abs err over the "
+              f"largest: audio {c_audio:.2e}; gradients of sum(|audio|): "
+              + ", ".join(f"{k} {e:.2e}" for k, e in c_grads.items())
+              + f"; signs of the audio that differ {c_flips} of {c_cpu[0].numel()}; host ms "
+              f"forward and backward card {c_card[2]:.1f}, CPU {c_cpu[2]:.1f}")
+        if not (torch.isfinite(c_card[0]).all() and tuple(c_card[0].shape) == (1, 1, cc["n_samples"])):
+            fail("CompressionModel: the card's audio is not finite or not (1, 1, n_samples)")
+        if c_audio > SSM_TOL["audio"]:
+            fail(f"CompressionModel audio: card {c_audio:.2e} of the largest from the CPU")
+        for k, e in c_grads.items():
+            if e > SSM_TOL["gradients"]:
+                fail(f"CompressionModel gradient {k}: card {e:.2e} of the largest from the CPU")
+        del cm, c_card, c_cpu
+
+        # 5. SSM and the SSM event generator, forward, at BASELINE #5's widths
+        gc = cfg["generator"]
+        frames, events = gc["frames"], gc["events"]
+        rng = np.random.default_rng(11)
+        control = np.maximum(rng.standard_normal((1, cpd, frames)), 0).astype(np.float32)
+        ssm = SSM(cpd, window, state, device=dev)
+        ssm_state = {k: v.cpu() for k, v in ssm.state_dict().items()}
+        gen_kw = dict(context_dim=gc["hyper"], control_plane_dim=cpd, input_dim=window,
+                      state_dim=state, hypernetwork_dim=gc["hyper"],
+                      hypernetwork_latent=gc["latent"], n_samples=frames * (window // 2),
+                      samplerate=22050, n_frames=frames)
+        eg = StateSpaceModelEventGenerator(**gen_kw, device=dev)
+        eg_state = {k: v.cpu() for k, v in eg.state_dict().items()}
+        heads = {k: (0.1 * rng.standard_normal((1, events) + s)).astype(np.float32)
+                 for k, s in eg.shape_spec.items()}
+        def forward(device):
+            s = SSM(cpd, window, state, device=device)
+            s.load_state_dict(ssm_state)
+            g = StateSpaceModelEventGenerator(**gen_kw, device=device)
+            g.load_state_dict(eg_state)
+            with torch.no_grad():
+                t0 = time.perf_counter()
+                a = s(torch.from_numpy(control).to(device))
+                sync()
+                t1 = time.perf_counter()
+                b = g({k: torch.from_numpy(v).to(device) for k, v in heads.items()})
+                sync()
+            return a, b, (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+        card, cpu = forward(dev), forward(torch.device("cpu"))
+        s_err, g_err = share_err(card[0], cpu[0]), share_err(card[1], cpu[1])
+        print(f"ssm 5, forward at BASELINE #5's widths (control {cpd}, window {window}, state "
+              f"{state}, {frames} frames): SSM {tuple(card[0].shape)} card against CPU "
+              f"{s_err:.2e} of the largest; StateSpaceModelEventGenerator ({events} events, "
+              f"hypernetwork {gc['hyper']} x latent {gc['latent']}) {tuple(card[1].shape)} "
+              f"{g_err:.2e}; host ms card {card[2]:.1f} and {card[3]:.1f}, CPU {cpu[2]:.1f} and "
+              f"{cpu[3]:.1f}")
+        for what, out, e in (("SSM", card[0], s_err), ("the SSM event generator", card[1], g_err)):
+            if not torch.isfinite(out).all() or e > SSM_TOL["audio"]:
+                fail(f"{what}: not finite, or the card {e:.2e} of the largest from the CPU")
+        del card, cpu, ssm, eg
+
+        # 6. none of the six kernels
+        launches = dict(kernels.LAUNCHES)
+        if launches != {k: 0 for k in launches}:
+            fail(f"ssm phase: launches {launches}, expected none")
+        print(f"ssm launches {launches}; the phase took {time.perf_counter() - t_phase:.1f} s "
+              f"(host clock)")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tmp.cleanup()
+
+
+def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM, ssm=SSM):
+    """Phases 2-8 on device ``dev``; returns the kernels' records."""
     import torch
     import torch.nn.functional as F
 
@@ -1926,6 +2283,8 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM):
     splat_phase(dev, splat, sync)
 
     siam_phase(dev, siam, sync)
+
+    ssm_phase(dev, ssm, sync)
 
     # ---- phase 5: per-kernel times
     fm, bm, res = encode_state(sig_b, d2_b, geom)

@@ -1,6 +1,8 @@
-"""The impulse-response directory from the environment or a ``.env`` file
-(counterpart of the ``IMPULSE_RESPONSE_PATH`` part of
-``mptpu/config/dotenv.py``).
+"""Paths from the environment or a ``.env`` file (counterpart of
+``Config.audio_path``, ``Config.impulse_response_path`` and
+``Config.cache_path`` in ``mptpu/config/dotenv.py``, as module functions
+over the same variables: ``AUDIO_PATH``, ``IMPULSE_RESPONSE_PATH``,
+``MPTPU_CACHE``).
 
 ``mptpu`` copies ``.env`` into ``os.environ`` once per process, keeping
 variables already set; here the file is read at each call and nothing is
@@ -29,8 +31,25 @@ def parse_dotenv(path: str = ".env") -> Dict[str, str]:
     return found
 
 
-def impulse_response_path() -> Optional[str]:
-    """``IMPULSE_RESPONSE_PATH`` from the environment, else from ``.env`` in
-    the working directory, else None."""
-    name = "IMPULSE_RESPONSE_PATH"
+def _setting(name: str) -> Optional[str]:
+    """``name`` from the environment, else from ``.env`` in the working
+    directory, else None."""
     return os.environ.get(name, parse_dotenv().get(name))
+
+
+def audio_path() -> Optional[str]:
+    """The audio corpus directory, ``AUDIO_PATH``, or None."""
+    return _setting("AUDIO_PATH")
+
+
+def impulse_response_path() -> Optional[str]:
+    """The impulse-response directory, ``IMPULSE_RESPONSE_PATH``, or None."""
+    return _setting("IMPULSE_RESPONSE_PATH")
+
+
+def cache_path() -> str:
+    """The directory of the KV stores and the demo corpus, ``MPTPU_CACHE``,
+    else ``~/.mptpu_cache``; created when missing."""
+    path = _setting("MPTPU_CACHE") or os.path.join(os.path.expanduser("~"), ".mptpu_cache")
+    os.makedirs(path, exist_ok=True)
+    return path

@@ -99,8 +99,10 @@ def _copy_tree(module: torch.nn.Module, tree, path: str) -> None:
     """Copy a flax parameter tree into ``module`` by name: a ``Dense`` leaf
     into the ``nn.Linear`` child of its name, a ``Conv`` leaf into the
     ``nn.Conv1d`` of its name, an array into the parameter of its name, a
-    subtree into the child of its name. The names must be
-    exactly the module's own parameters and its children that hold any."""
+    subtree into the child of its name; a real array into a complex
+    parameter as complex64, a complex one into a real parameter not at all.
+    The names must be exactly the module's own parameters and its children
+    that hold any."""
     own = {name for name, _ in module.named_parameters(recurse=False)}
     own |= {name for name, child in module.named_children()
             if next(child.parameters(), None) is not None}
@@ -121,7 +123,9 @@ def _copy_tree(module: torch.nn.Module, tree, path: str) -> None:
         elif isinstance(target, torch.nn.Parameter):
             if isinstance(node, dict):
                 raise ValueError(f"{where}: a subtree against a parameter")
-            arr = np.asarray(node, dtype=np.float32)
+            if np.iscomplexobj(node) and not target.is_complex():
+                raise ValueError(f"{where}: a complex array against a real parameter")
+            arr = np.asarray(node, dtype=np.complex64 if target.is_complex() else np.float32)
             if arr.shape != tuple(target.shape):
                 raise ValueError(f"{where}: shape {arr.shape} against the parameter's "
                                  f"{tuple(target.shape)}")
@@ -181,4 +185,34 @@ def siam_from_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
         warnings.warn(f"siam_from_flax: skipped {skipped}, layers of flags the model has off",
                       stacklevel=2)
     _copy_tree(module, {k: v for k, v in params.items() if k not in skipped}, "")
+    return module
+
+
+def _rnn_names(module: torch.nn.Module, tree):
+    """``tree`` with every ``InstrumentModel``'s ``w_ih`` and ``w_hh`` (flax's
+    (in, out) matrices) moved into ``{"rnn": {"weight_ih_l0",
+    "weight_hh_l0"}}``, transposed, where the port's module holds an
+    ``nn.RNN`` as ``rnn``."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _rnn_names(getattr(module, k), v) if isinstance(getattr(module, k, None),
+                                                                torch.nn.Module) else v
+           for k, v in tree.items()}
+    if isinstance(getattr(module, "rnn", None), torch.nn.RNN) and {"w_ih", "w_hh"} <= set(out):
+        out["rnn"] = {"weight_ih_l0": np.asarray(out.pop("w_ih")).T,
+                      "weight_hh_l0": np.asarray(out.pop("w_hh")).T}
+    return out
+
+
+def ssm_from_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
+    """Copy a flax tree of one of ``mptpu``'s SSM modules (``{"params":
+    ...}`` or its ``"params"`` entry) into the port's module of the same
+    configuration, in place, and return it: an ``OverfitControlPlane``'s
+    (``control``; ``ssm``'s ``proj``, ``out_proj`` and the RNN's ``w_ih``
+    and ``w_hh``, transposed into ``nn.RNN``'s weights), an
+    ``InstrumentModel``'s, a ``CompressionModel``'s or a ``ComplexSSM``'s
+    (complex leaves as complex64), an ``SSM``'s, or a
+    ``StateSpaceModelEventGenerator``'s (its five hypernetworks' Dense
+    layers). Raises on any name or shape that does not match."""
+    _copy_tree(module, _rnn_names(module, variables.get("params", variables)), "")
     return module

@@ -1,13 +1,18 @@
 """Synthetic audio when no dataset is mounted (counterpart of
-``synthetic_audio`` and ``streaming_windows`` in
+``synthetic_audio``, ``ensure_demo_dataset`` and ``streaming_windows`` in
 ``mptpu/data/synthetic.py``): sums of decaying harmonic tones and noise
 transients, in numpy. The same seed gives the same float32 samples as
-``mptpu``, draw for draw, so both packages fit and score one target.
+``mptpu``, draw for draw, and the same WAV corpus, so both packages fit
+and score one target.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+from ..utils.wav import write_wav
 
 
 def synthetic_audio(
@@ -59,6 +64,43 @@ def synthetic_audio(
             out[start : start + dur] += seg * env * rng.uniform(0.2, 0.6)
     mx = np.abs(out).max() + 1e-8
     return (out / mx).astype(np.float32)
+
+
+def ensure_demo_dataset(directory: str, n_files: int = 4, seconds: float = 12.0,
+                        samplerate: int = 22050, dense: bool = False,
+                        seed_offset: int = 0) -> str:
+    """Write a small synthetic WAV corpus into ``directory`` unless it holds
+    one of the kind asked for, and return ``directory``.
+
+    File ``i`` is ``synthetic_audio(seconds * samplerate, seed=seed_offset
+    + i)`` with 16 events, or with ``dense`` eight events a second over
+    sustained pedal tones, under the prefix ``synthetic_`` or
+    ``synthetic_dense_``. Writing one kind removes the other's files, since
+    every reader streams the directory's ``*.wav``."""
+    os.makedirs(directory, exist_ok=True)
+    prefix = "synthetic_dense_" if dense else "synthetic_"
+
+    def is_kind(f: str, want_dense: bool) -> bool:
+        if not (f.startswith("synthetic_") and f.endswith(".wav")):
+            return False
+        return f.startswith("synthetic_dense_") == want_dense
+
+    names = os.listdir(directory)
+    if not any(is_kind(f, dense) for f in names):
+        for stale in names:
+            if is_kind(stale, not dense):
+                try:
+                    os.remove(os.path.join(directory, stale))
+                except OSError:
+                    pass
+        n = int(seconds * samplerate)
+        n_events = int(seconds * 8) if dense else 16
+        for i in range(n_files):
+            write_wav(os.path.join(directory, f"{prefix}{i}.wav"),
+                      synthetic_audio(n, samplerate, n_events=n_events, seed=seed_offset + i,
+                                      sustained=dense),
+                      samplerate)
+    return directory
 
 
 def streaming_windows(seg: np.ndarray, n_samples: int, n_win: int) -> np.ndarray:

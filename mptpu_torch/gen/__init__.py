@@ -12,6 +12,8 @@ from .schedule import (
     interpretable_fft_shift,
 )
 from .splat import SplattingEventGenerator
+from .ssm import SSM, HyperNetworkLayer, StateSpaceModelEventGenerator, ssm_scan, state_space_model
+from .ssm_complex import ComplexSSM, CompressionModel, param_count
 from .transfer import damped_harmonic_oscillator, gaussian_bandpass_filtered, make_waves
 
 __all__ = [
@@ -28,6 +30,14 @@ __all__ = [
     "hierarchical_dirac",
     "interpretable_fft_shift",
     "SplattingEventGenerator",
+    "SSM",
+    "HyperNetworkLayer",
+    "StateSpaceModelEventGenerator",
+    "ssm_scan",
+    "state_space_model",
+    "ComplexSSM",
+    "CompressionModel",
+    "param_count",
     "damped_harmonic_oscillator",
     "gaussian_bandpass_filtered",
     "make_waves",

@@ -40,6 +40,7 @@ from .upsample import (
     fft_upsample,
 )
 from .stft import stft, log_stft, stft_relative_phase, short_time_transform
+from .overlap_add import overlap_add
 
 __all__ = [
     "n_fft_coeffs",
@@ -84,4 +85,5 @@ __all__ = [
     "log_stft",
     "stft_relative_phase",
     "short_time_transform",
+    "overlap_add",
 ]

@@ -1,10 +1,12 @@
-"""Read a WAV file with numpy alone (counterpart of ``read_wav`` in
-``mptpu/utils/wav.py``): PCM 8, 16, 24, 32 bit and float 32, 64 bit RIFF
-files, multichannel mixed to mono on request."""
+"""WAV files with numpy alone (counterpart of ``mptpu/utils/wav.py``):
+``read_wav`` reads PCM 8, 16, 24, 32 bit and float 32, 64 bit RIFF files,
+multichannel mixed to mono on request; ``write_wav`` writes 16-bit PCM;
+``fft_resample_np`` resamples a whole signal through its spectrum."""
 
 from __future__ import annotations
 
 import struct
+import wave
 
 import numpy as np
 
@@ -59,3 +61,28 @@ def read_wav(path: str, mono: bool = True) -> tuple[np.ndarray, int]:
         if mono:
             x = x.mean(axis=-1)
     return np.ascontiguousarray(x), samplerate
+
+
+def write_wav(path: str, samples: np.ndarray, samplerate: int = 22050) -> None:
+    """Write float samples, clipped to [-1, 1], as mono 16-bit PCM."""
+    clipped = np.clip(np.asarray(samples).reshape(-1), -1.0, 1.0)
+    ints = (clipped * 32767).astype("<i2")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(samplerate)
+        w.writeframes(ints.tobytes())
+
+
+def fft_resample_np(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
+    """``x`` at ``orig_sr`` resampled to ``target_sr`` by truncating or
+    zero-padding its whole rFFT (float32)."""
+    if orig_sr == target_sr:
+        return x
+    n = len(x)
+    new_n = int(round(n * target_sr / orig_sr))
+    spec = np.fft.rfft(x)
+    new_spec = np.zeros(new_n // 2 + 1, dtype=spec.dtype)
+    k = min(len(spec), len(new_spec))
+    new_spec[:k] = spec[:k]
+    return np.fft.irfft(new_spec, new_n).astype(np.float32) * (new_n / n)
