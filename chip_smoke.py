@@ -4,8 +4,8 @@ check it: the greedy matching-pursuit encoder at the bench configuration,
 multiband dictionary learning at its full width, the rest of the sparse
 layer (OMP refit, feature-map loss, top-k, quantize, sharded MP), the
 audio-splatting overfit at its full width, the SIAM codec's serving
-path at its full width, and the playable state-space model's overfit at
-its full width.
+path at its full width, the playable state-space model's overfit at its
+full width, and SIAM training (both trainers) at its full width.
 
     python3 chip_smoke.py
 
@@ -102,6 +102,24 @@ Phases, each printing lines (any failure exits non-zero):
    ``param_count`` 621,866), forward and the gradient of sum(|audio|), and
    ``SSM`` and ``StateSpaceModelEventGenerator`` forward at BASELINE #5's
    widths, each on the card against the CPU; no launch of the six kernels;
+9. (after phase 8, before phase 5's times) SIAM training (BASELINE #4)
+   under sw6's flags (``models.siam_overfit.SW6``) at full width from
+   parameters seeded with 0 and a fixed noise drawn from a CUDA generator
+   seeded with 0: ``overfit_siam`` for 30 steps with evals at 10 and 20
+   and a walk eval at 20 (ms a step, the loss falling, every step finite,
+   one step traced: launches, busy and idle share; peak memory); one
+   forward and backward on the card against the CPU from one
+   ``state_dict`` with TF32 allowed for the process, so that the step's
+   own ``no_tf32`` is what holds (frames and refinement shifts identical,
+   loss rtol 1e-4, channels within 1e-4 of their largest, the gradients by
+   group within 1e-8 of their largest in float64 and within 1e-4 in
+   float32, where a backward in TF32 reads 3.7e-4 and more);
+   one step with a NaN waveform weight (parameters, Adam's state and the
+   EMA bit-identical, no device-to-host copy in its trace);
+   ``train_and_monitor`` at batch 2 on the demo corpus under a temporary
+   ``MPTPU_CACHE`` for 5 steps through ``make_data_parallel_step`` on a
+   one-rank NCCL group, and one reservoir preview; no launch of the six
+   kernels;
 5. each kernel's time beside its plain version's, its bound and, for the
    boundary kernel, one ``torch.matmul`` computing the same product; the two
    step kernels per step from a chain of launches, with and without
@@ -109,8 +127,8 @@ Phases, each printing lines (any failure exits non-zero):
    multiband band beside the whole-encode kernel doing the same steps in one
    launch; the two whole-encode kernels and the cluster step kernel by
    cluster size, with the clusters the card holds at once beside each;
-9. a ``kernels`` JSON line, then the result line
-   ``{"ok": true, "device": {...}}``.
+10. a ``kernels`` JSON line, then the result line
+    ``{"ok": true, "device": {...}}``.
 
 It needs CUDA and the ``mptpu_torch`` package beside it, and exits with
 code 2 without either.
@@ -178,6 +196,19 @@ SSM_GROUPS = {"control": ["control"], "proj": ["ssm.proj"],
 # loss (relative), gradients (of each group's largest; in float64 on both sides, and
 # CompressionModel's, whose loss has no such noise, in float32)
 SSM_TOL = dict(audio=1e-5, loss=1e-4, gradients=1e-4, gradients64=1e-8)
+# scripts/siam_overfit.py under sw6's flags (its metrics.json config) at full width, driven for
+# 30 steps with an eval every 10 and one walk eval; one step on the card against the CPU
+# (cpu_events of the 32 events); train_siam.py's train_and_monitor at batch 2 for 5 steps
+SIAM_TRAIN = dict(tiny=False, steps=30, eval_every=10, walk_eval_every=20, cpu_events=32,
+                  batch=2, dp_steps=5)
+# the same at --tiny's size, for a rehearsal on the CPU
+SIAM_TRAIN_SMALL = dict(tiny=True, steps=6, eval_every=3, walk_eval_every=4, cpu_events=4,
+                        batch=2, dp_steps=2)
+# phase 9, the card against the CPU: loss (relative), channels (of their largest), gradients
+# by group (of each group's largest) in float64 on both sides and in float32: on an H100 the
+# trainer read 1.1e-5 to 2.8e-5 in float32, a backward in TF32 3.7e-4 to 1.7e-3 in each group
+# (python3 tools/siam_tf32.py)
+SIAM_TRAIN_TOL = dict(loss=1e-4, channels=1e-4, gradients64=1e-8, gradients32=1e-4)
 # the probe's kinds: label -> (kind, programmatic)
 PROBE_KINDS = {"grid": ("grid", False), "grid chained": ("grid", True), "fori": ("fori", False)}
 HOLD_CYCLES = 20_000_000   # about 10 ms of device spinning ahead of a timed run
@@ -436,12 +467,14 @@ def cluster_step_check(name, state, d2, gram_p, kw, n_steps, sync, gate_tail=Tru
 
 
 def device_time_by_kernel(fn, sync):
-    """({kernel name: device ms}, busy ms, kernel launches) over one call of
-    ``fn`` traced with ``torch.profiler``; empty and 0 when the trace holds
-    no device time. Busy time is the union of the kernels' intervals in the
-    trace, not the sum of their durations: under programmatic stream
-    serialization a step kernel starts while the step before it runs and
-    waits inside, so its interval overlaps its predecessor's."""
+    """({kernel name: device ms}, busy ms, kernel launches, {name: count})
+    over one call of ``fn`` traced with ``torch.profiler``, the names those
+    of the kernels, copies ("Memcpy DtoH (Device -> Pageable)" and the like)
+    and sets; empty and 0 when the trace holds no device time. Busy time
+    is the union of the kernels' intervals in the trace, not the sum of
+    their durations: under programmatic stream serialization a step kernel
+    starts while the step before it runs and waits inside, so its interval
+    overlaps its predecessor's."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -454,9 +487,12 @@ def device_time_by_kernel(fn, sync):
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
-    rows, spans, n_kernels = {}, [], 0
+    rows, counts, spans, n_kernels = {}, {}, [], 0
     for e in events:
-        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and e.get("dur", 0) > 0:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        counts[e["name"]] = counts.get(e["name"], 0) + 1
+        if e.get("dur", 0) > 0:
             rows[e["name"]] = rows.get(e["name"], 0.0) + e["dur"] / 1e3
             spans.append((e["ts"], e["ts"] + e["dur"]))
             n_kernels += e.get("cat") == "kernel"
@@ -465,7 +501,7 @@ def device_time_by_kernel(fn, sync):
         if t1 > end:
             busy += t1 - max(t0, end)
             end = t1
-    return rows, busy / 1e3, n_kernels
+    return rows, busy / 1e3, n_kernels, counts
 
 
 def busy_line(what, traced, wall_ms):
@@ -1873,8 +1909,298 @@ def ssm_phase(dev, cfg, sync):
         tmp.cleanup()
 
 
-def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM, ssm=SSM):
-    """Phases 2-8 on device ``dev``; returns the kernels' records."""
+def siam_train_groups(model):
+    """The SIAM model's parameter names by group: the encoder, the event
+    heads (vectors and switch), the multi-head transform, the decoder."""
+    groups = {"encoder": [], "heads": [], "multihead": [], "decoder": []}
+    for name, _ in model.named_parameters():
+        top = name.split(".")[0]
+        key = {"encoder": "encoder", "multihead": "multihead", "resonance": "decoder"}.get(
+            top, "heads")
+        groups[key].append(name)
+    return groups
+
+
+def siam_train_one_step(device, dtype, state, seg, noise, tiny, sync):
+    """One forward and backward of ``SIAMOverfitStep.grads`` under sw6's
+    flags, on ``device`` in ``dtype``, from ``state`` (a ``state_dict``) on
+    the window ``seg`` (1, 1, n) with ``noise`` (events, 1, 1, size), at
+    full width or ``tiny``: (channels, frames, refinement shifts, loss,
+    {name: gradient}, host ms)."""
+    import torch
+
+    from mptpu_torch.models import siam as siam_mod
+    from mptpu_torch.models.siam_overfit import SW6, LossSettings, SIAMOverfitStep, siam_sizes
+
+    sz = siam_sizes(tiny)
+    n, window, step_sz = sz["n_samples"], sz["window"], sz["step"]
+    half = n // 2
+    m = siam_mod.SIAMModel(
+        n_samples=n, context_dim=sz["context_dim"], in_channels=window // 2 + 1,
+        hidden_channels=sz["hidden"], n_events=noise.shape[0], transform_window_size=window,
+        transform_step_size=step_sz, attn_floor=SW6["attn_floor"], attn_leak=SW6["attn_leak"],
+        switch_bias_init=SW6["switch_bias_init"], switch_clamp=20.0, residual_clamp_scale=4.0,
+        encoder_clamp=1e4, vec_clamp=SW6["vec_clamp"], device=device)
+    m.load_state_dict(state)
+    m = m.to(dtype)
+    tg = torch.from_numpy(seg).to(device, dtype)
+    fi = tg * siam_mod.fade_tail(n, device=device).to(dtype)
+    nz = noise.to(device, dtype)
+    tr = SIAMOverfitStep(m, LossSettings(window, step_sz, SW6["gain_refit"], SW6["gain_reg"]))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        channels, _, scheds, _ = siam_mod.make_iterative_fn(m)(fi, nz)
+        _, shifts, _ = siam_mod.refine_event_alignment(
+            tg, channels, max_shift=SW6["align_refine"], n_iters=2, ridge=SW6["gain_refit"],
+            span=half)
+    loss, _, grads = tr.grads(nz, torch.tensor(SW6["waveform_weight"], device=device,
+                                               dtype=dtype), fi, tg, torch.sum(tg[..., :half] ** 2))
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    names = [nm for nm, _ in m.named_parameters()]
+    return (channels, scheds.argmax(-1).cpu(), shifts.cpu(), float(loss), dict(zip(names, grads)),
+            ms)
+
+
+def siam_train_phase(dev, cfg, sync):
+    """Phase 9, SIAM training (BASELINE #4) at sw6's flags, launch counts
+    set to 0 first and read last: (a) ``overfit_siam`` for a few steps
+    with evals and one walk eval (ms a step, one step traced, peak memory,
+    the loss falling, every step finite); (b) one step's forward and
+    backward on the card against the CPU from one state_dict, with TF32
+    switched on for the process (frames, refinement shifts, loss,
+    channels; gradients by group in float64 and in float32);
+    (c) one injected non-finite step: parameters, Adam's state and the EMA
+    bit-identical, no device-to-host copy inside the step (traced); (d)
+    ``train_and_monitor`` at batch 2 on the demo corpus through
+    ``make_data_parallel_step`` on a process group of one rank, and one
+    reservoir preview; none of the six kernels launched."""
+    import os
+    import tempfile
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from mptpu_torch import kernels
+    from mptpu_torch.models import siam as siam_mod
+    from mptpu_torch.models.siam_overfit import SW6, overfit_siam, siam_sizes
+    from mptpu_torch.models.siam_train import train_and_monitor
+    from mptpu_torch.data import synthetic_audio
+    from mptpu_torch.nn.init import uniform
+    from mptpu_torch.sparse import quantize
+
+    on_card = dev.type == "cuda"
+    sz = siam_sizes(cfg["tiny"])
+    n, E, window, step_sz = sz["n_samples"], sz["n_events"], sz["window"], sz["step"]
+    half = n // 2
+    saved = {k: os.environ.get(k) for k in ("MPTPU_CACHE", "AUDIO_PATH")}
+    tmp = tempfile.TemporaryDirectory()
+    os.environ["MPTPU_CACHE"] = tmp.name
+    os.environ.pop("AUDIO_PATH", None)
+    knobs = (quantize.RELU_SELECTION_LEAK, quantize.RELU_SELECTION_FLOOR)
+    try:
+        kernels.reset_launches()
+        t_phase = time.perf_counter()
+
+        # (a) the overfit trainer under sw6's flags
+        noise = uniform((E, 1, 1, min(8192, n)), -1.0, 1.0,
+                        torch.Generator(device=dev).manual_seed(0))
+        # one window of the script's target, for the single steps below
+        seg = synthetic_audio(n, 22050, n_events=SW6["audio_events"], seed=SW6["seed"],
+                              sustained=True).reshape(1, 1, n)
+        tgt = torch.from_numpy(seg).to(dev)
+        f_in = tgt * siam_mod.fade_tail(n, device=dev)
+        tge = torch.sum(tgt[..., :half] ** 2)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev) if on_card else 0
+        lines = []
+        t0 = time.perf_counter()
+        res = overfit_siam(**dict(SW6, tiny=cfg["tiny"], iterations=cfg["steps"],
+                                  eval_every=cfg["eval_every"],
+                                  walk_eval_every=cfg["walk_eval_every"]),
+                           out=os.path.join(tmp.name, "overfit"), noise=noise, device=dev,
+                           log=lines.append)
+        sync()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+        starts = res.iter_starts
+        busy_iters = {i for i in range(len(starts)) if i and (
+            i % cfg["eval_every"] == 0 or i % 50 == 0 or i % cfg["walk_eval_every"] == 0)}
+        plain = [starts[i + 1] - starts[i] for i in range(2, len(starts) - 1)
+                 if i not in busy_iters]
+        step_ms = 1e3 * float(np.mean(plain))
+        losses = [s[1] for s in res.steps]
+        logged = res.metrics["losses"]
+        model = res.trainer.model
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"siam train (a), overfit_siam under sw6's flags ({n} samples, {E} events, hidden "
+              f"{sz['hidden']}, context {sz['context_dim']}, STFT {window}/{step_sz}, "
+              f"{SW6['stream_windows']} windows; {n_params} parameters from seed 0, the fixed noise "
+              f"from a generator seeded 0): {cfg['steps']} steps in {run_s:.1f} s with evals at "
+              + ", ".join(str(e["step"]) for e in res.metrics["eval"])
+              + f" and a walk eval at {', '.join(str(w['step']) for w in res.metrics.get('walk', []))}"
+              f"; {step_ms:.1f} ms a step (host clock, mean of {len(plain)} steps without an "
+              f"eval after 2); loss every 25 steps {logged}, every step (read a step late) "
+              + ", ".join(f"{v:.2f}" for v in losses))
+        for e in res.metrics["eval"]:
+            print("siam train (a), eval " + json.dumps(e))
+        for w in res.metrics.get("walk", []):
+            print("siam train (a), walk " + json.dumps(w))
+        if not all(s[4] for s in res.steps) or not all(np.isfinite(losses)):
+            fail("siam train: a non-finite step in the overfit")
+        third = max(1, len(losses) // 3)
+        if not np.mean(losses[-third:]) < np.mean(losses[:third]):
+            fail(f"siam train: the loss did not fall (means of the first and last {third} "
+                 f"steps {np.mean(losses[:third]):.2f}, {np.mean(losses[-third:]):.2f})")
+        if on_card:
+            wave_w = torch.tensor(SW6["waveform_weight"], device=dev)
+            trainer = res.trainer
+            quantize.set_selection_leak(SW6["selection_leak"])
+            quantize.set_selection_floor(SW6["selection_floor"])
+            traced = device_time_by_kernel(
+                lambda: trainer.step(noise, wave_w, 1e3, 1.0, f_in, tgt, tge), sync)
+            print(f"siam train (a), one step traced: {traced[2]} kernel launches; peak memory over "
+                  f"the run {peak / 2**30:.3f} GiB (from {base / 2**30:.3f} GiB before)")
+            print(busy_line("siam train step, traced", traced, step_ms))
+        else:
+            print("siam train (a), trace and peak memory not measured (no card)")
+
+        # (b) one step, the card against the CPU, TF32 switched on for the process
+        kept_tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        ev = cfg["cpu_events"]
+        groups = siam_train_groups(model)
+
+        quantize.set_selection_leak(SW6["selection_leak"])
+        quantize.set_selection_floor(SW6["selection_floor"])
+        try:
+            card, cpu, card64, cpu64 = (
+                siam_train_one_step(d, dtype, state, seg, noise[:ev], cfg["tiny"], sync)
+                for d, dtype in ((dev, torch.float32), (torch.device("cpu"), torch.float32),
+                                 (dev, torch.float64), (torch.device("cpu"), torch.float64)))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = kept_tf32
+
+        def grad_errs(a, b):
+            return {g: max(share_err(a[4][k], b[4][k]) for k in names)
+                    for g, names in groups.items()}
+
+        ch_err = share_err(card[0], cpu[0])
+        loss_rel = abs(card[3] - cpu[3]) / abs(cpu[3])
+        pairs = {"float64 card against CPU": grad_errs(card64, cpu64),
+                 "float32 card against CPU": grad_errs(card, cpu),
+                 "card float32 against float64": grad_errs(card, card64),
+                 "CPU float32 against float64": grad_errs(cpu, cpu64)}
+        same = {what: torch.equal(a, b) for what, a, b in (
+            ("frames", card[1], cpu[1]), ("shifts", card[2], cpu[2]),
+            ("frames64", card64[1], cpu64[1]), ("frames32/64", card[1], card64[1]))}
+        print(f"siam train (b), one forward and backward at full width with {ev} of {E} events, "
+              f"card against CPU from one state_dict, TF32 allowed for the process: frames "
+              f"{'identical' if same['frames'] else 'DIFFERENT'}, refinement shifts "
+              f"{'identical' if same['shifts'] else 'DIFFERENT'} (float64 frames "
+              f"{'identical' if same['frames64'] else 'DIFFERENT'}; the card's float32 frames "
+              f"{'equal' if same['frames32/64'] else 'unequal'} to float64's); loss {card[3]:.6f} "
+              f"against {cpu[3]:.6f} (relative {loss_rel:.2e}); channels {ch_err:.2e} of the "
+              f"largest; host ms card {card[5]:.0f}, CPU {cpu[5]:.0f}, card float64 "
+              f"{card64[5]:.0f}, CPU float64 {cpu64[5]:.0f}")
+        print("siam train (b), gradients by group, max abs err over the largest: " + "; ".join(
+            f"{what}: " + ", ".join(f"{g} {e:.2e}" for g, e in ge.items())
+            for what, ge in pairs.items()))
+        if not (same["frames"] and same["shifts"] and same["frames64"]):
+            fail("siam train: frames or refinement shifts differ between the card and the CPU")
+        if loss_rel > SIAM_TRAIN_TOL["loss"] or ch_err > SIAM_TRAIN_TOL["channels"]:
+            fail(f"siam train: loss {loss_rel:.2e} or channels {ch_err:.2e} from the CPU's")
+        for bits in (64, 32):
+            tol = SIAM_TRAIN_TOL[f"gradients{bits}"]
+            for g, e in pairs[f"float{bits} card against CPU"].items():
+                if e > tol:
+                    fail(f"siam train gradients {g}, float{bits}: card {e:.2e} of the largest "
+                         f"from the CPU, above {tol}")
+        del card, cpu, card64, cpu64
+
+        # (c) one injected non-finite step
+        trainer = res.trainer
+        before = ([p.detach().clone() for p in trainer.params], trainer.opt_state,
+                  [e.clone() for e in trainer.ema])
+        nan_w = torch.tensor(float("nan"), device=dev)
+        outs = []
+        counts = device_time_by_kernel(lambda: outs.append(trainer.step(
+            noise, nan_w, 1e3, 1.0, f_in, tgt, tge)), sync)[3]
+        loss, _, gnorm, ok, tail = outs[0]
+        copies = {k: v for k, v in counts.items() if k.startswith("Memcpy")}
+        reads = {k: v for k, v in copies.items() if "DtoH" in k}
+        st, old = trainer.opt_state, before[1]
+        kept = (all(torch.equal(a, b) for a, b in zip(trainer.params, before[0]))
+                and all(torch.equal(a, b) for a, b in zip(trainer.ema, before[2]))
+                and torch.equal(st.count, old.count)
+                and all(torch.equal(a, b) for a, b in zip(st.mu + st.nu, old.mu + old.nu)))
+        print(f"siam train (c), one step with a NaN waveform weight: ok {bool(ok)}, loss "
+              f"{float(loss)}, gnorm {float(gnorm)}; parameters, Adam's moments and count "
+              f"({int(st.count)}) and the EMA {'bit-identical' if kept else 'CHANGED'}, the raw "
+              f"tail {'zero' if not tail.any() else 'NOT zero'}; the step's device copies, "
+              f"traced: " + (", ".join(f"{k} {v}" for k, v in sorted(copies.items()))
+                             if on_card else "not measured (no card)")
+              + (f" (no read of the device on the host)" if on_card and not reads else ""))
+        if on_card and (reads or not copies):
+            fail(f"siam train: the step read the device on the host ({reads}) or its trace "
+                 f"holds no copy")
+        if bool(ok) or not kept or bool(tail.any()):
+            fail("siam train: the gate let a non-finite step through")
+
+        # (d) train_and_monitor through the data-parallel step on one rank
+        backend = "nccl" if on_card else "gloo"
+        dist.init_process_group(backend, store=dist.FileStore(f"{tmp.name}/store", 1), rank=0,
+                                world_size=1, timeout=timedelta(seconds=120))
+        try:
+            out = train_and_monitor(batch_size=cfg["batch"], tiny=cfg["tiny"], port=0,
+                                    iterations=cfg["dp_steps"], data_parallel=True, seed=0,
+                                    log_every=1, device=dev,
+                                    dashboard=os.path.join(tmp.name, "dashboard"),
+                                    checkpoint_dir=os.path.join(tmp.name, "siam"),
+                                    log=lambda line: None)
+        finally:
+            dist.destroy_process_group()
+        st = out.step_starts
+        dp_ms = 1e3 * float(np.mean(np.diff(st[1:]))) if len(st) > 2 else float("nan")
+        rvecs = torch.from_numpy(out.reservoir.sample(1, E)).to(dev)
+        preview, _, times = siam_mod.make_random_sequence_fn(out.model)(
+            rvecs, generator=torch.Generator(device=dev).manual_seed(3))
+        mix = preview.sum(1)
+        print(f"siam train (d), train_and_monitor at batch {cfg['batch']} on the demo corpus "
+              f"(a temporary MPTPU_CACHE), port 0, through make_data_parallel_step on one "
+              f"{backend} rank: losses " + ", ".join(f"{v:.3f}" for v in out.losses)
+              + f"; {dp_ms:.1f} ms a step (host clock, the mean after the first, a loss read "
+              f"every step); the reservoir's preview: {int((times > 0).sum())} of {E} events "
+              f"placed, {tuple(mix.shape)}, peak {float(mix.abs().max()):.4e}, "
+              f"{'finite' if torch.isfinite(mix).all() else 'NOT finite'}")
+        if not all(np.isfinite(out.losses)) or not torch.isfinite(mix).all():
+            fail("siam train: train_and_monitor's losses or preview not finite")
+        if out.collection.names() != sorted(["loss", "orig", "recon"]):
+            fail(f"siam train: the dashboard logged {out.collection.names()}")
+
+        launches = dict(kernels.LAUNCHES)
+        if launches != {k: 0 for k in launches}:
+            fail(f"siam train phase: launches {launches}, expected none")
+        print(f"siam train launches {launches}; the phase took "
+              f"{time.perf_counter() - t_phase:.1f} s (host clock)")
+    finally:
+        quantize.set_selection_leak(knobs[0])
+        quantize.set_selection_floor(knobs[1])
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tmp.cleanup()
+
+
+def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM, ssm=SSM,
+        siam_train=SIAM_TRAIN):
+    """Phases 2-9 on device ``dev``; returns the kernels' records."""
     import torch
     import torch.nn.functional as F
 
@@ -2285,6 +2611,8 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM, ssm=SSM):
     siam_phase(dev, siam, sync)
 
     ssm_phase(dev, ssm, sync)
+
+    siam_train_phase(dev, siam_train, sync)
 
     # ---- phase 5: per-kernel times
     fm, bm, res = encode_state(sig_b, d2_b, geom)

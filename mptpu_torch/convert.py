@@ -188,6 +188,51 @@ def siam_from_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
     return module
 
 
+def _flax_tree(module: torch.nn.Module) -> dict:
+    """The flax parameter tree of ``module`` as float32 numpy, the inverse
+    of ``_copy_tree``: an ``nn.Linear`` as a ``Dense`` (its weight
+    transposed into the kernel), an ``nn.Conv1d`` as a ``Conv`` (weight
+    (out, in, k) as kernel (k, in, out)), a parameter as an array, a child
+    that holds parameters as a subtree."""
+    out = {name: p.detach().cpu().numpy().copy()
+           for name, p in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        if isinstance(child, torch.nn.Linear):
+            out[name] = {"kernel": child.weight.detach().cpu().numpy().T.copy()}
+            if child.bias is not None:
+                out[name]["bias"] = child.bias.detach().cpu().numpy().copy()
+        elif isinstance(child, torch.nn.Conv1d):
+            out[name] = {"kernel": child.weight.detach().cpu().numpy().transpose(2, 1, 0).copy(),
+                         "bias": child.bias.detach().cpu().numpy().copy()}
+        else:
+            sub = _flax_tree(child)
+            if sub:
+                out[name] = sub
+    return out
+
+
+def flax_paths(module: torch.nn.Module, prefix: tuple = ()) -> dict:
+    """``{parameter name: its path in the flax tree}`` of ``module``, e.g.
+    ``"to_event_switch.weight" -> ("to_event_switch", "kernel")``."""
+    out = {name: prefix + (name,) for name, _ in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        if isinstance(child, (torch.nn.Linear, torch.nn.Conv1d)):
+            for pname, _ in child.named_parameters(recurse=False):
+                out[f"{name}.{pname}"] = prefix + (name, "kernel" if pname == "weight" else pname)
+        else:
+            out.update({f"{name}.{k}": v for k, v in flax_paths(child, prefix + (name,)).items()})
+    return out
+
+
+def siam_to_flax(module: torch.nn.Module) -> dict:
+    """The port's ``SIAMModel`` as ``mptpu``'s flax variables ``{"params":
+    tree}`` of float32 numpy, the exact inverse of :func:`siam_from_flax`:
+    a checkpoint whose params are this loads in ``mptpu``'s
+    ``load_checkpoint`` and ``SIAMModel.apply`` and in the port's
+    ``SIAMCodec``."""
+    return {"params": _flax_tree(module)}
+
+
 def _rnn_names(module: torch.nn.Module, tree):
     """``tree`` with every ``InstrumentModel``'s ``w_ih`` and ``w_hh`` (flax's
     (in, out) matrices) moved into ``{"rnn": {"weight_ih_l0",

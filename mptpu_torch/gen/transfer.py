@@ -12,6 +12,7 @@ import torch
 from scipy.signal import sawtooth, square
 
 from ..device import default_device
+from ..ops.kinks import clip
 from ..ops.pdf import pdf2
 
 
@@ -57,7 +58,7 @@ def damped_harmonic_oscillator(
     keeps ``tension - x^2`` at least 1e-12, else its magnitude is taken."""
     x = damping / (2 * mass)
     if do_clamp:
-        omega = torch.sqrt(torch.clamp_min(tension - x**2, 1e-12))
+        omega = torch.sqrt(clip(tension - x**2, 1e-12))
     else:
         omega = torch.sqrt(torch.abs(tension - x**2))
     phi = torch.atan2(initial_velocity + x * initial_displacement, initial_displacement * omega)

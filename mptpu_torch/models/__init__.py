@@ -1,15 +1,19 @@
-"""Model assemblies of the port (counterpart of ``mptpu.models``; only the
-ported names)."""
+"""Model assemblies of the port (counterpart of ``mptpu.models`` and of the
+trainers in ``scripts/``; only the ported names)."""
 
 from .inference import SIAMCodec, SIAMEncoding, quantize_events
-from .siam import (SIAMModel, fade_tail, make_iterative_fn, make_streaming_fn,
-                   refine_event_alignment, refit_event_gains, siam_transform, streaming_encode)
+from .siam import (Reservoir, SIAMModel, fade_tail, make_iterative_fn, make_random_sequence_fn,
+                   make_streaming_fn, refine_event_alignment, refit_event_gains, siam_transform,
+                   streaming_encode)
+from .siam_overfit import SIAMOverfitStep, overfit_siam
+from .siam_train import train_and_monitor
 from .splat_overfit import OverfitHierarchicalEvents, SplatFit, overfit_splat, splat_loss_transform
 from .ssm_overfit import (InstrumentModel, OverfitControlPlane, SSMFit, generate_param_dict,
                           train_model_for_segment)
 
 __all__ = ["OverfitHierarchicalEvents", "SplatFit", "overfit_splat", "splat_loss_transform",
-           "SIAMCodec", "SIAMEncoding", "quantize_events", "SIAMModel", "fade_tail",
-           "make_iterative_fn", "make_streaming_fn", "refine_event_alignment",
-           "refit_event_gains", "siam_transform", "streaming_encode", "InstrumentModel",
+           "SIAMCodec", "SIAMEncoding", "quantize_events", "Reservoir", "SIAMModel", "fade_tail",
+           "make_iterative_fn", "make_random_sequence_fn", "make_streaming_fn",
+           "refine_event_alignment", "refit_event_gains", "siam_transform", "streaming_encode",
+           "SIAMOverfitStep", "overfit_siam", "train_and_monitor", "InstrumentModel",
            "OverfitControlPlane", "SSMFit", "generate_param_dict", "train_model_for_segment"]

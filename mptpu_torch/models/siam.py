@@ -1,6 +1,5 @@
 """The SIAM iterative-decomposition codec, BASELINE config #4
-(counterpart of ``mptpu/models/siam.py``; its training helpers,
-``make_random_sequence_fn`` and ``Reservoir``, are not ported yet).
+(counterpart of ``mptpu/models/siam.py``).
 
 An anti-causal dilated-convolution encoder picks one event per step (a
 vector and a frame in the first half of the window); the
@@ -33,7 +32,7 @@ from ..nn.init import uniform, uniform_linear
 from ..nn.multihead import MultiHeadTransform
 from ..ops.fft import irfft, real_ends, rfft
 from ..ops.refit import refit_gains
-from ..ops.ste import leaky_relu_ste, straight_through
+from ..ops.ste import leaky_relu_ste, sparse_softmax, straight_through
 from ..ops.stft import stft
 from ..ops.windows import linspace
 from ..sparse.topk import sparsify, sparsify_vectors
@@ -483,6 +482,63 @@ def make_streaming_fn(model: SIAMModel):
                 torch.cat(all_events, dim=1))
 
     return stream
+
+
+def make_random_sequence_fn(model: SIAMModel):
+    """``random_sequence(vecs, normal=None, uniform_draw=None,
+    bernoulli=None, noise=None, generator=None) -> (audio (batch, E, n),
+    vecs, times)``: render events from (reservoir-sampled) vectors at
+    random sparse times. Each event's time is the one-hot sparse softmax of
+    a normal draw over the window's first half, scaled by a uniform draw
+    and kept with probability 0.5. ``normal``, ``uniform_draw`` and
+    ``bernoulli`` (0 or 1), each (batch, E, frames), are those draws, and
+    ``noise`` the decoder's (E, batch, 1, noise size); whichever is None is
+    drawn from ``generator`` (``mptpu`` splits one key four ways for
+    them)."""
+    n_events, n_frames = model.n_events, model.n_frames
+
+    @torch.no_grad()
+    def random_sequence(vecs: torch.Tensor, normal=None, uniform_draw=None, bernoulli=None,
+                        noise=None, generator: torch.Generator | None = None):
+        batch = vecs.shape[0]
+        shape = (batch, n_events, n_frames)
+        dev = vecs.device
+        if normal is None:
+            normal = torch.randn(shape, generator=generator, device=dev)
+        if uniform_draw is None:
+            uniform_draw = torch.rand(shape, generator=generator, device=dev)
+        if bernoulli is None:
+            bernoulli = torch.rand(shape, generator=generator, device=dev) < 0.5
+        raw = normal.clone()
+        raw[:, :, n_frames // 2:] = 0.0
+        times = sparse_softmax(raw, normalize=True, axis=-1)
+        times = times * uniform_draw * bernoulli.to(times.dtype)
+        if noise is None:
+            noise = draw_noise(model, (n_events, batch), generator)
+        outs = [model.generate(vecs[:, i: i + 1], times[:, i: i + 1], noise=noise[i])
+                for i in range(n_events)]
+        return torch.cat(outs, dim=1), vecs, times
+
+    return random_sequence
+
+
+class Reservoir:
+    """Host-side reservoir of recent event vectors for the self-supervised
+    previews (numpy, as ``mptpu``'s: the same draws from the same seed)."""
+
+    def __init__(self, size: int, context_dim: int, seed: int = 0):
+        self.size = size
+        self.buffer = np.zeros((size, context_dim), dtype=np.float32)
+        self.rng = np.random.default_rng(seed)
+
+    def update(self, vecs) -> None:
+        v = np.asarray(vecs).reshape(-1, self.buffer.shape[1])
+        indices = self.rng.permutation(self.size)[: v.shape[0]]
+        self.buffer[indices] = v[: len(indices)]
+
+    def sample(self, batch_size: int, n_events: int) -> np.ndarray:
+        indices = self.rng.permutation(self.size)[: batch_size * n_events]
+        return self.buffer[indices].reshape(batch_size, n_events, self.buffer.shape[1])
 
 
 def streaming_encode(model: SIAMModel, audio: torch.Tensor, noise: Optional[torch.Tensor] = None,

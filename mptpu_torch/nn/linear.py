@@ -11,15 +11,15 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ..ops import kinks
 from ..ops.norms import unit_norm
 from .init import uniform_linear
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, 0.2)
+    return kinks.leaky_relu(x, 0.2)
 
 
 class ResidualBlock(nn.Module):

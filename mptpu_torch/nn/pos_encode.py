@@ -9,6 +9,7 @@ import math
 import torch
 from torch import nn
 
+from ..ops.kinks import clip
 from ..ops.windows import linspace
 from .init import uniform_linear
 
@@ -30,7 +31,7 @@ def positional_encoding(sequence_length: int, n_freqs: int, geometric_freq_spaci
 def pos_encode_feature(x: torch.Tensor, domain: float, n_freqs: int) -> torch.Tensor:
     """[x, sin(2^i x), cos(2^i x), ...] over the last axis, ``x`` clipped
     to +-``domain``."""
-    x = torch.clamp(x, -domain, domain)
+    x = clip(x, -domain, domain)
     output = [x]
     for i in range(n_freqs):
         output.append(torch.sin((2**i) * x))

@@ -1,7 +1,9 @@
-"""Observability of the port (counterpart of ``mptpu.obs``; only the
-ported names): the static HTML article and the WAV bytes it embeds."""
+"""Observability of the port (counterpart of ``mptpu.obs``): the static
+HTML article, the logged-value collection and its live dashboard."""
 
 from .article import AudioComponent, ImageComponent, conjure_article
-from .collection import encode_audio
+from .collection import Collection, encode_audio, loggers
+from .server import serve_collection
 
-__all__ = ["AudioComponent", "ImageComponent", "conjure_article", "encode_audio"]
+__all__ = ["AudioComponent", "ImageComponent", "conjure_article", "Collection", "encode_audio",
+           "loggers", "serve_collection"]

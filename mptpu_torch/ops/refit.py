@@ -38,4 +38,7 @@ def refit_gains(
     trace = torch.diagonal(gram, dim1=-2, dim2=-1).sum(-1)
     lam = ridge * (trace[:, None, None] / n_events + 1e-12)
     eye = torch.eye(n_events, dtype=gram.dtype, device=gram.device)[None]
-    return torch.linalg.solve(gram + lam * eye, rhs[..., None])[..., 0]
+    # without the error check, which reads the solver's status on the host:
+    # a singular system gives non-finite gains, as jnp.linalg.solve does,
+    # and the trainers' gate skips that step
+    return torch.linalg.solve_ex(gram + lam * eye, rhs[..., None], check_errors=False)[0][..., 0]

@@ -10,8 +10,8 @@ needed here either.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
+from .kinks import leaky_relu
 from .norms import max_norm
 
 
@@ -23,8 +23,8 @@ def straight_through(forward: torch.Tensor, backward: torch.Tensor) -> torch.Ten
 def leaky_relu_ste(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
     """Forward exactly ``relu(x)``; backward the leaky-relu gradient, so
     that an amplitude gate whose pre-activations all went negative still
-    gets a gradient."""
-    return straight_through(torch.relu(x), F.leaky_relu(x, negative_slope))
+    gets a gradient (1 at 0, as ``jax.nn.leaky_relu``'s)."""
+    return straight_through(torch.relu(x), leaky_relu(x, negative_slope))
 
 
 def _one_hot_argmax(x: torch.Tensor, axis: int, values: torch.Tensor) -> torch.Tensor:

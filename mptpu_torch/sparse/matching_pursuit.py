@@ -20,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import default_device
 from ..ops.correlation import mp_correlate
+from ..ops.kinks import clip
 from ..ops.norms import unit_norm
 
 
@@ -273,17 +274,12 @@ def sparse_feature_map(
     return fm
 
 
-def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
-    """``jnp.clip``: a maximum, then a minimum. An input exactly on a bound
-    passes half its gradient, where ``torch.clamp`` passes all of it; the
-    target map's largest entry over ``mx`` is exactly 1 whenever it holds
-    the maximum, and its gradient reaches ``recon`` through ``mx``."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
-
-
 def _bce_sum(r_map: torch.Tensor, t_map: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
-    r = _clip(r_map / mx, 1e-7, 1.0 - 1e-7)
-    t = _clip(t_map / mx, 0.0, 1.0)
+    # jnp.clip's half gradient at a bound (ops/kinks.py): the target map's
+    # largest entry over mx is exactly 1 whenever it holds the maximum, and
+    # its gradient reaches recon through mx
+    r = clip(r_map / mx, 1e-7, 1.0 - 1e-7)
+    t = clip(t_map / mx, 0.0, 1.0)
     return torch.sum(-(t * torch.log(r) + (1.0 - t) * torch.log(1.0 - r)))
 
 

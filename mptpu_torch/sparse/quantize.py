@@ -6,11 +6,11 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..device import default_device
 from ..gen.transfer import make_waves
+from ..ops.kinks import leaky_relu
 from ..ops.ste import hard_softmax, sparse_softmax
 from ..utils.music import musical_scale_hz
 
@@ -37,7 +37,7 @@ def hard_choice(
         if RELU_SELECTION_LEAK:
             # opt-in training aid (set_selection_leak): a relu selection whose
             # logits are all negative is exactly silent and passes no gradient
-            sel = F.leaky_relu(selections, RELU_SELECTION_LEAK)
+            sel = leaky_relu(selections, RELU_SELECTION_LEAK)
         else:
             sel = torch.relu(selections)
         if RELU_SELECTION_FLOOR:

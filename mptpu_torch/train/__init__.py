@@ -2,8 +2,11 @@
 ported names)."""
 
 from .checkpoint import CheckpointManager, load_checkpoint, save_checkpoint
-from .optim import make_train_step, optimizer
+from .guard import StormGuard
+from .optim import (Adam, AdamState, adam_init, adam_update, apply_gated, global_norm,
+                    make_train_step, optimizer, trust_ratio_clip)
 from .overfit import overfit_model
 
-__all__ = ["CheckpointManager", "load_checkpoint", "save_checkpoint", "make_train_step",
-           "optimizer", "overfit_model"]
+__all__ = ["CheckpointManager", "load_checkpoint", "save_checkpoint", "StormGuard", "Adam",
+           "AdamState", "adam_init", "adam_update", "apply_gated", "global_norm",
+           "make_train_step", "optimizer", "trust_ratio_clip", "overfit_model"]
