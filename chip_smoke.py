@@ -5,7 +5,9 @@ multiband dictionary learning at its full width, the rest of the sparse
 layer (OMP refit, feature-map loss, top-k, quantize, sharded MP), the
 audio-splatting overfit at its full width, the SIAM codec's serving
 path at its full width, the playable state-space model's overfit at its
-full width, and SIAM training (both trainers) at its full width.
+full width, SIAM training (both trainers) at its full width, and the
+models on those layers: the whole-song splat trainer, the playable
+instrument, event search and the learned-atom MP.
 
     python3 chip_smoke.py
 
@@ -120,6 +122,25 @@ Phases, each printing lines (any failure exits non-zero):
    ``MPTPU_CACHE`` for 5 steps through ``make_data_parallel_step`` on a
    one-rank NCCL group, and one reservoir preview; no launch of the six
    kernels;
+10. (after phase 9, before phase 5's times) the models on ported layers
+   (ROADMAP A10), their demo corpus under a temporary ``MPTPU_CACHE``:
+   the whole-song splat trainer at ``scripts/songsplat.py``'s reference
+   configuration (2^19-sample song, 2^15-sample segments, 190 events,
+   capacity 32): one forward and backward on the card against the CPU at a
+   window with more events in range than the capacity (the range query's
+   indices identical; loss; gradients by group in float64 and float32),
+   ``train_songsplat`` for 5 + 100 steps (steps/s, every step finite, the
+   loss over the render's segments falling), one step traced, the
+   whole-song render with and without the gain refit; the instrument at
+   sw6's shapes (a phrase of random notes, a bank harvested from the first
+   window of codec_rate.py's segment and a phrase of it; card against CPU);
+   ``index_corpus`` at ``scripts/build_index.py``'s defaults (the cluster
+   step kernel's launches, by band, must be above 0; a query finds itself;
+   card against CPU on 4 chunks); the learned-atom MP at 128 x 1,024 atoms
+   over 2^15 samples, 25 iterations (card against CPU: events identical,
+   channels, gradients in float64; 20 Adam steps at lr 1e-2, one traced);
+   no launch of the other five kernels, nor of the cluster step kernel
+   outside ``index_corpus``;
 5. each kernel's time beside its plain version's, its bound and, for the
    boundary kernel, one ``torch.matmul`` computing the same product; the two
    step kernels per step from a chain of launches, with and without
@@ -127,7 +148,7 @@ Phases, each printing lines (any failure exits non-zero):
    multiband band beside the whole-encode kernel doing the same steps in one
    launch; the two whole-encode kernels and the cluster step kernel by
    cluster size, with the clusters the card holds at once beside each;
-10. a ``kernels`` JSON line, then the result line
+11. a ``kernels`` JSON line, then the result line
     ``{"ok": true, "device": {...}}``.
 
 It needs CUDA and the ``mptpu_torch`` package beside it, and exits with
@@ -209,6 +230,54 @@ SIAM_TRAIN_SMALL = dict(tiny=True, steps=6, eval_every=3, walk_eval_every=4, cpu
 # trainer read 1.1e-5 to 2.8e-5 in float32, a backward in TF32 3.7e-4 to 1.7e-3 in each group
 # (python3 tools/siam_tf32.py)
 SIAM_TRAIN_TOL = dict(loss=1e-4, channels=1e-4, gradients64=1e-8, gradients32=1e-4)
+# phase 10(d), mptpu's learned-atom MP on JAX-CPU from the port's seed-0 atoms: each Adam
+# step's loss by learning rate (python3 tests/reference/mp_model_lr.py --lrs 1e-2,1e-3 and,
+# for the small rehearsal, --small --steps 6). At these widths mptpu's loss rises at lr 1e-2,
+# the rate of its test at 8 atoms x 32 samples, and falls at lr 1e-3
+MP_FULL = {
+    1e-2: [5.87476, 843.742, 92.6128, 181.86, 766.438, 492.937, 227.035, 77.3154, 235.803,
+           234.401, 326.986, 254.877, 152.061, 77.0889, 109.525, 113.872, 86.4912, -34.2722,
+           60.3127, 61.3481],
+    1e-3: [5.87476, -14.1611, -37.2402, -64.9946, -80.7842, -77.584, -74.582, -82.6477,
+           -97.6365, -111.406, -119.994, -124.781, -129.159, -135.006, -141.848, -147.759,
+           -151.045, -153.1, -156.442, -161.668]}
+MP_SMALL = {
+    1e-2: [-2.43187e-05, -0.000540257, -0.00201845, -0.00513601, -0.0105925, -0.0191584],
+    1e-3: [-2.43187e-05, -3.95775e-05, -6.05583e-05, -8.63075e-05, -0.000120163, -0.000163078]}
+# phase 10, the models on ported layers (ROADMAP A10): scripts/songsplat.py's reference
+# configuration (a 2^19-sample song, 2^15-sample segments, 8 events a second: 190 events over
+# 2,048 frames, a range-query capacity of 32; Adam at lr 1e-3) for 5 + 100 steps, one step on
+# the card against the CPU at a window where ``dense`` events are planted in range; the
+# instrument over the SIAM model at sw6's shapes (2^17 samples, 32 events, hidden 128,
+# context 32, STFT 2048/256): 5 random notes, then 7 notes of a bank harvested from the first
+# window of scripts/codec_rate.py's segment (262,144 samples, 24 events, seed 3);
+# scripts/build_index.py's defaults (32 chunks of 16,384 samples from the demo corpus, 6 bands
+# of 64 atoms x 128 taps, 8 steps), 4 chunks on the CPU; the learned-atom MP at BASELINE.md's
+# greedy MP demo configuration (128 atoms x 1,024 samples, a 2^15-sample signal, 25
+# iterations; the reference's mp.py:92), batch 1, 20 Adam steps at lr 1e-2 and at 1e-3
+MODELS = dict(
+    songsplat=dict(tiny=False, warmup=5, steps=100, dense=40),
+    instrument=dict(n_samples=2**17, n_events=32, hidden=128, context_dim=32, window=2048,
+                    walk_samples=262144, audio_events=24),
+    index=dict(chunks=32, chunk_size=16384, cpu_chunks=4),
+    mp=dict(n_atoms=128, atom_samples=1024, n_samples=2**15, iterations=25, falls_at=1e-3,
+            reference=MP_FULL))
+# the same at small sizes, for a rehearsal on the CPU
+MODELS_SMALL = dict(
+    songsplat=dict(tiny=True, warmup=1, steps=12, dense=12),
+    instrument=dict(n_samples=2**13, n_events=4, hidden=32, context_dim=16, window=512,
+                    walk_samples=2**14, audio_events=8),
+    index=dict(chunks=12, chunk_size=2048, cpu_chunks=2),   # the twelfth is the first not silent
+    mp=dict(n_atoms=8, atom_samples=32, n_samples=512, iterations=3, falls_at=1e-3,
+            reference=MP_SMALL))
+# phase 10, the card against the CPU: losses (relative), audio and channels (of their
+# largest), gradients by group (of each group's largest) in float64 on both sides and, where
+# float32 is not noise (the song splat's event vectors and heads), in float32; the song
+# splat's times, its reverb and the learned atoms' float32 gradients are printed; the learned
+# MP's Adam losses against mptpu's trajectory, of the target feature's l1 norm (the port on
+# the CPU reads 1.5e-5 at full width, 1.6e-7 small: tests/reference/mp_model_lr.py)
+MODELS_TOL = dict(loss=1e-4, audio=1e-4, gradients64=1e-8, gradients32=1e-3, embedding=1e-4,
+                  trajectory=1e-4)
 # the probe's kinds: label -> (kind, programmatic)
 PROBE_KINDS = {"grid": ("grid", False), "grid chained": ("grid", True), "fori": ("fori", False)}
 HOLD_CYCLES = 20_000_000   # about 10 ms of device spinning ahead of a timed run
@@ -2198,9 +2267,491 @@ def siam_train_phase(dev, cfg, sync):
         tmp.cleanup()
 
 
+def songsplat_fixed_loss(model, song) -> float:
+    """The song splat's loss summed over the whole-song render's tiled
+    segments, with one fixed noise, on the model's device: the trainer draws
+    another segment and noise at every step, so its steps' own losses trend
+    only over many steps (python3 tests/reference/songsplat_trajectory.py)."""
+    import torch
+
+    from mptpu_torch.models import songsplat as ss
+    from mptpu_torch.nn.init import uniform
+
+    dev = model.times.device
+    nz = uniform(model.noise_shape, -1.0, 1.0, torch.Generator().manual_seed(2)).to(dev)
+    f, n = model.segment_frames, model.n_segment_samples
+    with torch.no_grad():
+        return sum(float(ss.songsplat_loss(model, torch.from_numpy(
+            song[t * model.step_size: t * model.step_size + n].reshape(1, 1, -1)).to(dev), t,
+            nz)[0]) for t in range(f, model.total_frames - f, f))
+
+
+def models_phase(dev, cfg, sync, records=None):
+    """Phase 10, the models on ported layers (ROADMAP A10), launch counts
+    set to 0 first and read last, the demo corpus under a temporary
+    MPTPU_CACHE: (a) the whole-song splat trainer at the reference
+    configuration (one step on the card against the CPU at a dense window,
+    ``train_songsplat`` for warm-up and timed steps, one step traced, the
+    whole-song render with and without the gain refit); (b) the
+    instrument at sw6's shapes (a random phrase, a bank harvested from a
+    window and a phrase of it; the card against the CPU); (c)
+    ``index_corpus`` at build_index.py's defaults (the cluster step
+    kernel's launches, by band; a query finds its own chunk; the card
+    against the CPU on a few chunks); (d) the learned-atom MP (Adam steps,
+    the card against the CPU); (e) no kernel but the cluster step kernel,
+    and that one only in (c). ``records``, when given, takes (c)'s count of
+    the cluster step kernel."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+
+    from mptpu_torch import kernels
+    from mptpu_torch.data import iter_audio_segments, synthetic_audio
+    from mptpu_torch.losses import iterative_loss
+    from mptpu_torch.models import (BruteForceSearch, MatchingPursuit, build_instrument,
+                                    demo_phrase, index_corpus, make_embedder)
+    from mptpu_torch.models import songsplat as ss
+    from mptpu_torch.models.siam import draw_noise
+    from mptpu_torch.nn.init import uniform
+    from mptpu_torch.ops import stft, unit_norm
+    from mptpu_torch.ops.decompose import fft_frequency_decompose
+    from mptpu_torch.sparse import dictionary_gram, encode_state, fast_geometry
+    from mptpu_torch.sparse.cuda_fused_mp import fused_step_applicable
+    from mptpu_torch.train.optim import Adam
+    from mptpu_torch.utils.wav import write_wav
+
+    on_card = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    K4 = "cuda_fused_step_pipelined"
+    saved = {k: os.environ.get(k) for k in ("MPTPU_CACHE", "AUDIO_PATH")}
+    tmp = tempfile.TemporaryDirectory()
+    os.environ["MPTPU_CACHE"] = tmp.name
+    os.environ.pop("AUDIO_PATH", None)
+
+    def peak_reset():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else float("nan")
+
+    try:
+        kernels.reset_launches()
+        t_phase = time.perf_counter()
+
+        # (a) the whole-song splat trainer
+        c = cfg["songsplat"]
+        total, seg_n, eps, cap = ss.TINY if c["tiny"] else ss.REFERENCE
+        song = ss.get_song(None, total, 22050)
+
+        def build_splat(device):
+            return ss.SongSplatModel(total, seg_n, events_per_second=eps, events_per_segment=cap,
+                                     device=device)
+
+        model = build_splat(cpu)
+        lo, hi = model.start_range()
+        sf = (lo + hi) // 2
+        rng = np.random.default_rng(0)
+        dense = torch.from_numpy(rng.choice(model.total_events, c["dense"], replace=False))
+        frames = torch.from_numpy(rng.integers(sf - model.segment_frames,
+                                               sf + model.segment_frames, c["dense"]))
+        with torch.no_grad():   # plant more events in the window than the capacity
+            model.times[dense, frames] += 1.0
+        state = model.state_dict()
+        noise = uniform(model.noise_shape, -1.0, 1.0, torch.Generator().manual_seed(0))
+        target = torch.from_numpy(song[sf * 256: sf * 256 + seg_n].reshape(1, 1, -1))
+        names = [name for name, _ in model.named_parameters()]
+        groups = {"events": ["events"], "times": ["times"],
+                  "heads": [name for name in names if name.startswith("transform.")],
+                  "reverb": [name for name in names if name.startswith("decoder.")]}
+
+        def splat_once(device, dtype):
+            m = build_splat(device)
+            m.load_state_dict(state)
+            m.to(dtype)
+            t0 = time.perf_counter()
+            idx, _, _ = m.range_query(sf)
+            loss, _, count = ss.songsplat_loss(m, target.to(device, dtype), sf,
+                                               noise.to(device, dtype))
+            names, params = zip(*m.named_parameters())
+            grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+            loss = float(loss.detach())
+            return idx.cpu(), loss, dict(zip(names, grads)), int(count), \
+                (time.perf_counter() - t0) * 1e3
+
+        runs = {(d.type, dt): splat_once(d, dt) for d in (dev, cpu)
+                for dt in (torch.float32, torch.float64)}
+        card, host = runs[(dev.type, torch.float32)], runs[("cpu", torch.float32)]
+        card64, host64 = runs[(dev.type, torch.float64)], runs[("cpu", torch.float64)]
+
+        def group_errs(a, b):
+            return {g: max(share_err(a[2][n], b[2][n]) for n in group)
+                    for g, group in groups.items()}
+
+        e32, e64 = group_errs(card, host), group_errs(card64, host64)
+        same_idx = all(torch.equal(r[0], host[0]) for r in runs.values())
+        loss_rel = abs(card[1] - host[1]) / abs(host[1])
+        print(f"models (a) song splat, one forward and backward at {total} samples, segments of "
+              f"{seg_n} ({model.total_events} events, {model.total_frames} frames, capacity "
+              f"{cap}) at start frame {sf} with {c['dense']} events planted in range: "
+              f"{card[3]} in range, the range query's indices "
+              f"{'identical' if same_idx else 'DIFFERENT'} on both devices in float32 and "
+              f"float64; loss {card[1]:.6f} against {host[1]:.6f} (relative {loss_rel:.2e}); "
+              f"gradients by group, card against CPU, max abs err over the largest: float64 "
+              + ", ".join(f"{g} {e:.2e}" for g, e in e64.items()) + "; float32 "
+              + ", ".join(f"{g} {e:.2e}" for g, e in e32.items())
+              + f"; host ms card {card[4]:.0f}, CPU {host[4]:.0f}")
+        if not same_idx or card[3] <= cap:
+            fail(f"models: the range query's indices differ, or {card[3]} events in range do "
+                 f"not exceed the capacity {cap}")
+        if loss_rel > MODELS_TOL["loss"]:
+            fail(f"models: the song splat's loss {loss_rel:.2e} from the CPU's")
+        for g, e in e64.items():
+            if e > MODELS_TOL["gradients64"]:
+                fail(f"models: song splat gradients {g}, float64: {e:.2e} of the largest")
+        for g in ("events", "heads"):
+            if e32[g] > MODELS_TOL["gradients32"]:
+                fail(f"models: song splat gradients {g}, float32: {e32[g]:.2e} of the largest")
+        del runs, card, host, card64, host64, model
+
+        initial = build_splat(dev)   # the trainer's initial model, seed 0
+        before = songsplat_fixed_loss(initial, song)
+        _, eval_before = ss.render_song(initial, song, 0.0, device=dev)
+        del initial
+        out = os.path.join(tmp.name, "songsplat")
+        lines = []
+        peak_reset()
+        run = ss.train_songsplat(iterations=c["warmup"] + c["steps"], tiny=c["tiny"], port=0,
+                                 out=out, device=dev, log=lines.append)
+        peak = peak_gib()
+        timed_s = run.t_end - run.step_starts[c["warmup"]]
+        step_ms = 1e3 * timed_s / c["steps"]
+        losses = run.step_losses
+        after = songsplat_fixed_loss(run.model, song)
+        k = min(20, max(1, len(losses) // 3))
+        print(f"models (a) song splat, train_songsplat at the reference configuration "
+              f"({'--tiny' if c['tiny'] else 'full width'}), port 0, output in a temporary "
+              f"directory: {c['warmup']} warm-up and {c['steps']} timed steps, "
+              f"{c['steps'] / timed_s:.2f} steps/s ({step_ms:.1f} ms a step, host clock, ending "
+              f"in a synchronisation); loss every step (read after the loop) "
+              + ", ".join(f"{v:.1f}" for v in losses)
+              + f" (means of the first and last {k}: {np.mean(losses[:k]):.1f}, "
+              f"{np.mean(losses[-k:]):.1f}); the loss over the render's segments, one fixed "
+              f"noise, {before:.1f} before and {after:.1f} after; peak memory {peak:.3f} GiB; "
+              f"its log: " + " | ".join(lines))
+        with open(os.path.join(out, "song_eval.json")) as f:
+            print("models (a) song splat, song_eval.json " + json.dumps(json.load(f))
+                  + "; the untrained model's render " + json.dumps(eval_before))
+        lsd = (eval_before["covered_lsd_db"], run.eval["covered_lsd_db"])
+        if not np.isfinite(losses).all() or not after < before or not lsd[1] < lsd[0]:
+            fail(f"models: a song splat step's loss is not finite, or the loss over the "
+                 f"render's segments ({before:.2f}, {after:.2f}) or its covered LSD "
+                 f"({lsd[0]:.3f}, {lsd[1]:.3f} dB) did not fall")
+        t0 = time.perf_counter()
+        _, refit = ss.render_song(run.model, song, 1e-3, device=dev)
+        print(f"models (a) song splat, the whole song rendered with the gain refit at ridge "
+              f"1e-3: {json.dumps(refit)} ({(time.perf_counter() - t0) * 1e3:.0f} ms)")
+        if on_card:
+            adam = Adam(1e-3)
+            st = adam.init(list(run.model.parameters()))
+            tgt, sf2 = next(ss.segment_stream(torch.from_numpy(song).to(dev), run.model, seed=1))
+            nz = uniform(run.model.noise_shape, -1.0, 1.0,
+                         torch.Generator(device=dev).manual_seed(1))
+            ss.songsplat_step(run.model, adam, st, tgt, sf2, nz)   # Adam's state warm
+            traced = device_time_by_kernel(
+                lambda: ss.songsplat_step(run.model, adam, st, tgt, sf2, nz), sync)
+            print(f"models (a) song splat, one step traced: {traced[2]} kernel launches")
+            print(busy_line("song splat step, traced", traced, step_ms))
+        else:
+            print("models (a) song splat, trace and peak memory not measured (no card)")
+        del run
+
+        # (b) the instrument at sw6's shapes
+        c = cfg["instrument"]
+        n = c["n_samples"]
+        sizes = dict(n_samples=n, n_events=c["n_events"], hidden=c["hidden"],
+                     context_dim=c["context_dim"], window=c["window"])
+        inst = build_instrument(None, size_overrides=sizes, device=dev)
+        lines = []
+        inst.add_note(inst.random_vector(99), 0.0)
+        inst.render()   # warm-up
+        inst.clear()
+        sync()
+        t0 = time.perf_counter()
+        phrase = demo_phrase(inst, os.path.join(tmp.name, "random.wav"), log=lines.append)
+        sync()
+        random_ms = (time.perf_counter() - t0) * 1e3
+
+        def render_ms():
+            """ms a note of rendering the queued notes again."""
+            t0 = time.perf_counter()
+            inst.render()
+            sync()
+            return (time.perf_counter() - t0) * 1e3 / len(inst.notes)
+
+        random_note_ms = render_ms()
+        window = synthetic_audio(c["walk_samples"], 22050, n_events=c["audio_events"], seed=3,
+                                 sustained=True)[:n]
+        wav = os.path.join(tmp.name, "window.wav")
+        write_wav(wav, window)
+        inst = build_instrument(None, size_overrides=sizes, device=dev)
+        x = torch.from_numpy(window).reshape(1, 1, -1).to(dev)
+        inst.harvest_bank(x)   # warm-up
+        sync()
+        t0 = time.perf_counter()
+        inst.harvest_bank(x)
+        sync()
+        harvest_ms = (time.perf_counter() - t0) * 1e3
+        inst.bank = None
+        t0 = time.perf_counter()
+        bank_phrase = demo_phrase(inst, os.path.join(tmp.name, "bank.wav"), harvest_wav=wav,
+                                  log=lines.append)
+        sync()
+        bank_ms = (time.perf_counter() - t0) * 1e3
+        bank_note_ms = render_ms()
+        print(f"models (b) instrument at {n} samples, {c['n_events']} events, hidden "
+              f"{c['hidden']}, context {c['context_dim']}, STFT {c['window']}/256 (seeded "
+              f"parameters): demo_phrase of 5 random notes {random_ms:.1f} ms (the gain and "
+              f"WAV included), {phrase.shape[-1]} samples, their render again "
+              f"{random_note_ms:.2f} ms a note; a harvest (the codec's encode of one window) "
+              f"{harvest_ms:.1f} ms; demo_phrase of 7 bank notes {bank_ms:.1f} ms (its own "
+              f"harvest included), {bank_phrase.shape[-1]} samples, their render again "
+              f"{bank_note_ms:.2f} ms a note (host clock, each ending in a synchronisation); "
+              f"its log: " + " | ".join(lines))
+        if not (np.isfinite(phrase).all() and np.isfinite(bank_phrase).all()
+                and np.abs(bank_phrase).max() > 0):
+            fail("models: an instrument phrase is not finite or silent")
+        # the card against the CPU: the same parameters, codec noise, window and note noise
+        host_inst = build_instrument(None, size_overrides=sizes, device=cpu)
+        host_inst.model.load_state_dict({k: v.cpu() for k, v in inst.model.state_dict().items()})
+        host_inst.codec.noise = inst.codec.noise.cpu()
+        enc, host_enc = inst.codec.encode(x), host_inst.codec.encode(x.cpu())
+        same_frames = torch.equal(enc.schedules.argmax(-1).cpu(), host_enc.schedules.argmax(-1))
+        vec_err = share_err(enc.vecs, host_enc.vecs)
+        note_noise = draw_noise(inst.model, (len(inst.notes), 1), torch.Generator().manual_seed(5))
+        card_audio = inst.render(noise=note_noise.to(dev))
+        host_audio = host_inst.render(notes=inst.notes, noise=note_noise)
+        audio_err = share_err(torch.from_numpy(card_audio), torch.from_numpy(host_audio))
+        print(f"models (b) instrument, card against CPU: the harvested bank's frames "
+              f"{'identical' if same_frames else 'DIFFERENT'}, its vectors {vec_err:.2e} of the "
+              f"largest; the 7-note phrase from the same vectors and noise {audio_err:.2e} of its "
+              f"largest")
+        if not same_frames or audio_err > MODELS_TOL["audio"]:
+            fail(f"models: the instrument's bank frames differ or its phrase is {audio_err:.2e} "
+                 f"from the CPU's")
+        del inst, host_inst, enc, host_enc
+
+        # (c) index_corpus at build_index.py's defaults
+        c = cfg["index"]
+        if any(kernels.LAUNCHES.values()):
+            fail(f"models: (a) and (b) launched kernels: {kernels.LAUNCHES}")
+        embed = make_embedder(c["chunk_size"], device=dev)
+        chunks = [ch for _, (_, ch) in zip(range(c["chunks"]), iter_audio_segments(
+            None, "*.wav", c["chunk_size"], rng=np.random.default_rng(0)))]   # the corpus written
+        embed(chunks[0])   # warm-up
+        sync()
+        before = kernels.LAUNCHES[K4]
+        lines = []
+        t0 = time.perf_counter()
+        index = index_corpus(chunks=c["chunks"], chunk_size=c["chunk_size"],
+                             index_path=os.path.join(tmp.name, "search_index"), embed=embed,
+                             rng=np.random.default_rng(0), device=dev, log=lines.append)
+        sync()
+        index_ms = (time.perf_counter() - t0) * 1e3
+        k4 = kernels.LAUNCHES[K4] - before
+        if records is not None:
+            records[K4]["launches_build_index"] = k4
+        # the first chunk that is not silent (a silent chunk embeds as zeros)
+        live = next((i for i in range(len(index.keys)) if index.embeddings[i].abs().max() > 0),
+                    None)
+        if live is None:
+            fail("models: every indexed chunk embeds as zeros")
+        by_band, gate, checked = {}, {}, {}
+        signal = fft_frequency_decompose(torch.from_numpy(chunks[live]).to(dev),
+                                         embed.model.min_size)
+        for size, spec in embed.model.bands.items():
+            b0 = kernels.LAUNCHES[K4]
+            spec.encode(signal[size], embed.steps)
+            by_band[size] = kernels.LAUNCHES[K4] - b0
+            geom = fast_geometry(size, spec.atom_size, 128)
+            gate[size] = fused_step_applicable(size, spec.atom_size, 128, geom.pad, spec.n_atoms,
+                                               dev)
+        counted = dict(kernels.LAUNCHES)
+        for size, spec in embed.model.bands.items():
+            # the cluster step kernel at this band's shapes against the
+            # one-block kernel and the plain version, from the same state;
+            # on the CPU every wrapper takes the plain version
+            if on_card and not gate[size]:
+                continue
+            geom = fast_geometry(size, spec.atom_size, 128)
+            d2 = unit_norm(spec.d)
+            gram_p = F.pad(dictionary_gram(d2), (0, 1))
+            fm, bm, res = encode_state(signal[size], d2, geom)
+            bm = F.pad(bm, (0, geom.nb_pad - geom.n_blocks), value=-3e38)
+            checked[size] = cluster_step_check(f"models (c), band {size}", (fm, bm, res), d2,
+                                               gram_p, geom._asdict(), embed.steps, sync)
+        kernels.LAUNCHES.update(counted)   # the checks' launches do not count
+        print(f"models (c) index_corpus, {len(index.keys)} chunks of {c['chunk_size']} samples "
+              f"from the demo corpus (a temporary MPTPU_CACHE): {index_ms:.1f} ms, "
+              f"{index_ms / len(index.keys):.2f} ms a chunk (host clock, the index written "
+              f"included); {k4} launches of {K4} ({k4 / max(1, len(index.keys)):.0f} a chunk); "
+              f"chunk {live} ({index.keys[live]}, the first not silent) again, launches by band: "
+              + ", ".join(f"{s}: {v}" for s, v in by_band.items())
+              + "; the fused gate by band (block 128): "
+              + ", ".join(f"{s}: {g}" for s, g in gate.items())
+              + "; its log: " + " | ".join(lines))
+        print(f"check {K4} at index_corpus's bands (chunk {live}, {embed.steps} steps): clusters "
+              f"of 1 to 16, step by step and as chains, bit-identical to the one-block kernel, "
+              f"whose events equal the plain version's at every step; max abs err vs plain, "
+              f"clipped events, by band: "
+              + ", ".join(f"{s}: {e:.3e}, {n}" for s, (e, n) in checked.items()))
+        if on_card and (not checked or set(checked) != {s for s, g in gate.items() if g}):
+            fail(f"models: the cluster step kernel was checked at bands {sorted(checked)}, the "
+                 f"gate passes {sorted(s for s, g in gate.items() if g)}")
+        # the script's seed-0 query, for the log (it may pick a silent chunk,
+        # which finds any other silent chunk first); then the first chunk that
+        # is not silent must find itself first at distance 0 and the next
+        # result further away
+        search = BruteForceSearch(index.embeddings, index.keys, n_results=4, device=dev)
+        found, embs = search.search(index.embeddings[live])
+        dist = torch.linalg.vector_norm(embs - index.embeddings[live], dim=-1).tolist()
+        print(f"models (c) index_corpus, the script's query {index.query_key} found "
+              f"{index.result_keys}; chunk {live} {index.keys[live]} found "
+              + ", ".join(f"{k} at {d:.6g}" for k, d in zip(found, dist)))
+        if found[0] != index.keys[live] or dist[0] != 0.0 or not dist[1] > 0.0:
+            fail(f"models: chunk {index.keys[live]} did not find itself first at distance 0 "
+                 f"with the next further away ({found}, {dist})")
+        if on_card and k4 == 0:
+            fail(f"models: index_corpus launched {K4} no time")
+        host_embed = make_embedder(c["chunk_size"], device=cpu)
+        same_events, all_events, gaps = 0, 0, []
+        for ch in chunks[: c["cpu_chunks"]]:
+            tuples = [emb.model.flattened_event_tuples(
+                emb.model.encode(torch.from_numpy(ch).to(d), emb.steps))
+                for emb, d in ((embed, dev), (host_embed, cpu))]
+            (gi, ut, _), (hgi, hut, _) = tuples
+            same = (gi.cpu() == hgi) & (ut.cpu() == hut)
+            same_events += int(same.sum())
+            all_events += same.numel()
+            want = host_embed(ch)   # a silent chunk embeds as zeros
+            gaps.append(float(np.abs(embed(ch) - want).max()) / max(float(np.abs(want).max()),
+                                                                    1e-30))
+        print(f"models (c) index_corpus, card against CPU on {c['cpu_chunks']} chunks: "
+              f"{same_events} of {all_events} events identical (atom and time); the largest "
+              f"embedding gap {max(gaps):.2e} of the largest")
+        if same_events == all_events and max(gaps) > MODELS_TOL["embedding"]:
+            fail(f"models: the same events embed {max(gaps):.2e} apart")
+        after_c = dict(kernels.LAUNCHES)
+        del embed, host_embed, index, chunks
+
+        # (d) the learned-atom MP
+        c = cfg["mp"]
+        audio = torch.from_numpy(synthetic_audio(c["n_samples"], 22050, n_events=8, seed=1,
+                                                 sustained=True)).reshape(1, 1, -1)
+
+        def transform(v):
+            return stft(v, 2048, 256, pad=True)
+
+        def build_mp(device):
+            return MatchingPursuit(c["n_atoms"], c["atom_samples"], c["n_samples"],
+                                   c["iterations"], device=device)
+
+        mp_state = build_mp(cpu).state_dict()
+
+        def mp_once(device, dtype):
+            m = build_mp(device)
+            m.load_state_dict(mp_state)
+            m.to(dtype)
+            a = audio.to(device, dtype)
+            ch, atoms, times = m(a, return_events=True)
+            loss = iterative_loss(a, ch, transform)
+            (g,) = torch.autograd.grad(loss, [m.atoms])
+            return ch.detach().cpu(), atoms.cpu(), times.cpu(), float(loss.detach()), g.cpu()
+
+        mp_runs = {(d.type, dt): mp_once(d, dt) for d in (dev, cpu)
+                   for dt in (torch.float32, torch.float64)}
+        (cc, ca, ct, cl, cg), (hc, ha, ht, hl, hg) = (mp_runs[(dev.type, torch.float32)],
+                                                      mp_runs[("cpu", torch.float32)])
+        c64, h64 = mp_runs[(dev.type, torch.float64)], mp_runs[("cpu", torch.float64)]
+        same = (torch.equal(ca, ha) and torch.equal(ct, ht) and torch.equal(c64[1], h64[1])
+                and torch.equal(c64[2], h64[2]))
+        ch_err, g64, g32 = share_err(cc, hc), share_err(c64[4], h64[4]), share_err(cg, hg)
+        a = audio.to(dev)
+        scale = float(transform(audio).abs().sum())   # the target feature's l1 norm
+        trained, mp_ms, mp_peak = {}, None, None
+        for lr, want in c["reference"].items():
+            m = build_mp(dev)
+            m.load_state_dict(mp_state)
+            opt = torch.optim.Adam(m.parameters(), lr=lr)
+            losses, starts = [], []
+            peak_reset()
+            for _ in range(len(want)):
+                starts.append(time.perf_counter())
+                opt.zero_grad(set_to_none=True)
+                loss = iterative_loss(a, m(a), transform)
+                loss.backward()
+                opt.step()
+                losses.append(loss.detach())
+            sync()
+            if mp_ms is None:   # the first learning rate's steps are the ones timed
+                mp_ms = 1e3 * (time.perf_counter() - starts[1]) / (len(want) - 1)
+                mp_peak = peak_gib()
+            losses = torch.stack(losses).tolist()
+            gap = max(abs(u - v) for u, v in zip(losses, want)) / scale
+            trained[lr] = losses, gap
+
+        def mp_step():
+            opt.zero_grad(set_to_none=True)
+            iterative_loss(a, m(a), transform).backward()
+            opt.step()
+        print(f"models (d) learned-atom MP, {c['n_atoms']} atoms x {c['atom_samples']} samples, "
+              f"{c['n_samples']} samples, {c['iterations']} iterations, batch 1: card against "
+              f"CPU from one state_dict: atoms and times of every iteration "
+              f"{'identical' if same else 'DIFFERENT'} (float32 and float64), channels "
+              f"{ch_err:.2e} of the largest, loss {cl:.6g} against {hl:.6g}, gradients "
+              f"float64 {g64:.2e}, float32 {g32:.2e} of the largest; Adam steps, "
+              f"{mp_ms:.1f} ms a step (host clock, after the first), peak memory "
+              f"{mp_peak:.3f} GiB; "
+              + "; ".join(f"lr {lr:g}, {len(v[0])} steps, loss " + ", ".join(
+                  f"{x:.6g}" for x in v[0]) + f" (mptpu's trajectory {v[1]:.2e} of the target "
+                  f"feature's l1 norm {scale:.6g} away at most)" for lr, v in trained.items()))
+        if on_card:
+            traced = device_time_by_kernel(mp_step, sync)
+            print(f"models (d) learned-atom MP, one step traced: {traced[2]} kernel launches")
+            print(busy_line("learned-atom MP step, traced", traced, mp_ms))
+        if not same or ch_err > MODELS_TOL["audio"] or g64 > MODELS_TOL["gradients64"]:
+            fail(f"models: the learned-atom MP differs from the CPU (events identical {same}, "
+                 f"channels {ch_err:.2e}, float64 gradients {g64:.2e})")
+        for lr, (losses, gap) in trained.items():
+            if not np.isfinite(losses).all() or gap > MODELS_TOL["trajectory"]:
+                fail(f"models: the learned-atom MP's loss at lr {lr:g} is not finite or "
+                     f"{gap:.2e} of the feature's norm from mptpu's trajectory")
+        # mptpu's loss rises at lr 1e-2 at these widths and falls at lr 1e-3
+        losses = trained[c["falls_at"]][0]
+        if not losses[-1] < losses[0]:
+            fail(f"models: the learned-atom MP's loss at lr {c['falls_at']:g} did not fall "
+                 f"({losses[0]:.6g} -> {losses[-1]:.6g})")
+
+        # (e) no kernel but the cluster step kernel, and that one in (c) alone
+        launches = dict(kernels.LAUNCHES)
+        if launches != after_c or any(v for name, v in launches.items() if name != K4):
+            fail(f"models phase: launches {launches}, expected {K4} alone, in (c)")
+        print(f"models launches {launches}; the phase took {time.perf_counter() - t_phase:.1f} s "
+              f"(host clock)")
+    finally:
+        for key, v in saved.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
+        tmp.cleanup()
+
+
 def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM, ssm=SSM,
-        siam_train=SIAM_TRAIN):
-    """Phases 2-9 on device ``dev``; returns the kernels' records."""
+        siam_train=SIAM_TRAIN, models=MODELS):
+    """Phases 2-10 on device ``dev``; returns the kernels' records."""
     import torch
     import torch.nn.functional as F
 
@@ -2613,6 +3164,8 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM, ssm=SSM,
     ssm_phase(dev, ssm, sync)
 
     siam_train_phase(dev, siam_train, sync)
+
+    models_phase(dev, models, sync, records)
 
     # ---- phase 5: per-kernel times
     fm, bm, res = encode_state(sig_b, d2_b, geom)

@@ -188,6 +188,38 @@ def siam_from_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
     return module
 
 
+# the song splat's flax names (its setup's) that the port holds elsewhere
+SONGSPLAT_CHILDREN = {"generator": "decoder"}
+
+
+def songsplat_from_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
+    """Copy a flax tree of ``mptpu``'s ``SongSplatModel`` (``{"params":
+    ...}`` or its ``"params"`` entry: ``events``, ``times``, ``transform``
+    and ``generator``, the last the port's ``decoder``) into the port's
+    model of the same configuration, in place, and return it. Raises on any
+    name or shape that does not match."""
+    params = variables.get("params", variables)
+    _copy_tree(module, {SONGSPLAT_CHILDREN.get(k, k): v for k, v in params.items()}, "")
+    return module
+
+
+def songsplat_to_flax(module: torch.nn.Module) -> dict:
+    """The port's ``SongSplatModel`` as ``mptpu``'s flax variables
+    ``{"params": tree}`` of float32 numpy, the inverse of
+    :func:`songsplat_from_flax`."""
+    back = {v: k for k, v in SONGSPLAT_CHILDREN.items()}
+    return {"params": {back.get(k, k): v for k, v in _flax_tree(module).items()}}
+
+
+def mp_model_from_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
+    """Copy the flax tree of ``mptpu``'s learned-atom ``MatchingPursuit``
+    (``{"params": {"atoms": (1, n_atoms, atom_samples)}}`` or its
+    ``"params"`` entry) into the port's module, in place, and return it.
+    Raises on any other name or shape."""
+    _copy_tree(module, variables.get("params", variables), "")
+    return module
+
+
 def _flax_tree(module: torch.nn.Module) -> dict:
     """The flax parameter tree of ``module`` as float32 numpy, the inverse
     of ``_copy_tree``: an ``nn.Linear`` as a ``Dense`` (its weight

@@ -43,6 +43,15 @@ def iter_files(base_path, pattern: Union[str, List[str]]):
                 yield full
 
 
+def iter_files_in_random_order(base_path, pattern, rng: np.random.Generator | None = None):
+    """``iter_files``' files in the order of ``rng.permutation`` (a fresh
+    ``np.random.default_rng()`` when None), ``mptpu``'s order for the same
+    generator."""
+    filenames = list(iter_files(base_path, pattern))
+    rng = rng or np.random.default_rng()
+    yield from (filenames[i] for i in rng.permutation(len(filenames)))
+
+
 def _decode(path: str, samplerate: int = 22050) -> np.ndarray:
     x, sr = read_wav(path, mono=True)
     if sr != samplerate:
@@ -131,3 +140,18 @@ def iter_chunks(path, pattern, chunksize: int) -> Iterable[Tuple[str, int, int]]
         data = audio(fp, collection=collection)
         for i in range(0, len(data), chunksize):
             yield fp, i, i + chunksize
+
+
+def iter_audio_segments(path, pattern, chunksize: int,
+                        make_key=lambda fp, start, stop: f"{fp}_{start}_{stop}",
+                        rng: np.random.Generator | None = None
+                        ) -> Iterable[Tuple[str, np.ndarray]]:
+    """(key, (1, 1, chunksize) float32 chunk) of every whole chunk but a
+    last that ends the file, files in ``iter_files_in_random_order``'s order
+    under ``rng``, each chunk divided by its largest value plus 1e-8."""
+    collection = audio_collection()
+    for fp in iter_files_in_random_order(_resolve_path(path), pattern, rng):
+        data = audio(fp, collection=collection).reshape(1, 1, -1)
+        for i in range(0, data.shape[-1] - chunksize, chunksize):
+            chunk = data[:, :, i: i + chunksize]
+            yield make_key(fp, i, i + chunksize), chunk / (chunk.max() + 1e-8)

@@ -31,6 +31,7 @@ from torch import nn
 from ..config import impulse_response_path
 from ..device import default_device, no_tf32
 from ..nn.init import uniform, uniform_init, uniform_linear
+from ..ops import kinks
 from ..ops.fft import fft_convolve, fft_shift, real_ends
 from ..ops.norms import unit_norm
 from ..ops.ste import sparse_softmax
@@ -48,7 +49,7 @@ def flatten_envelope(x: torch.Tensor, kernel_size: int, step_size: int) -> torch
     maximum of |x| over windows of ``kernel_size`` every ``step_size``
     samples (``-inf`` padding of ``step_size`` on each side), interpolated
     back to ``x``'s length."""
-    env = torch.abs(x)
+    env = kinks.abs(x)
     normalized = x / (torch.amax(env, dim=-1, keepdim=True) + 1e-3)
     padded = F.pad(env, (step_size, step_size), value=float("-inf"))
     pooled = padded.unfold(-1, kernel_size, step_size).amax(dim=-1)

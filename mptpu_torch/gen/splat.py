@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..nn.init import uniform
+from ..ops import kinks
 from ..ops.fft import fft_convolve
 from ..ops.norms import unit_norm
 from ..ops.pdf import gamma_pdf, pdf2
@@ -112,10 +113,10 @@ class EnvelopeAndPosition:
 
     def __call__(self, signals: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if self.envelope_type == "Gaussian":
-            envelopes = pdf2(a, (torch.abs(b) + 1e-12) * self.gaussian_envelope_factor,
+            envelopes = pdf2(a, (kinks.abs(b) + 1e-12) * self.gaussian_envelope_factor,
                              self.n_samples)
         elif self.envelope_type == "Gamma":
-            envelopes = gamma_pdf(torch.abs(a) + 1e-12, torch.abs(b) + 1e-12, self.n_samples)
+            envelopes = gamma_pdf(kinks.abs(a) + 1e-12, kinks.abs(b) + 1e-12, self.n_samples)
             ramp = torch.zeros_like(envelopes)
             ramp[..., : self.gamma_ramp_size] = (
                 linspace(0.0, 1.0, self.gamma_ramp_size, device=a.device) ** self.gamma_ramp_exponent)
@@ -202,14 +203,14 @@ class SplattingEventGenerator(nn.Module, EventGenerator):
         batch = p["env"].shape[0]
         overall_mix = torch.softmax(p["mix"], dim=-1)
         filtered_noise = self.noise_generator(noise, p["noise_filter"][:, :, 0],
-                                              torch.abs(p["noise_filter"][:, :, 1]) + 1e-12)
+                                              kinks.abs(p["noise_filter"][:, :, 1]) + 1e-12)
         filtered_resonance, filt_res_2, filt_crossfade_stacked = self.evolving_resonance(
             resonances=resonances,
             decays=p["filter_decay"],
             start_filter_means=torch.zeros_like(p["resonance_filter_1"][:, :, 0]),
-            start_filter_stds=torch.abs(p["resonance_filter_1"][:, :, 1]) + 1e-12,
+            start_filter_stds=kinks.abs(p["resonance_filter_1"][:, :, 1]) + 1e-12,
             end_filter_means=torch.zeros_like(p["resonance_filter_2"][:, :, 0]),
-            end_filter_stds=torch.abs(p["resonance_filter_2"][:, :, 1]) + 1e-12,
+            end_filter_stds=kinks.abs(p["resonance_filter_2"][:, :, 1]) + 1e-12,
         )
         if decays is not None:
             filtered_resonance = filtered_resonance * decays
@@ -222,7 +223,7 @@ class SplattingEventGenerator(nn.Module, EventGenerator):
         mixed = mix([res, res2], filt_crossfade_stacked)
         final = mix([positioned_noise, mixed], overall_mix[:, :, None, :])
         final = final.reshape(batch, -1, self.n_samples)
-        final = unit_norm(final, axis=-1) * torch.abs(p["amp"])
+        final = unit_norm(final, axis=-1) * kinks.abs(p["amp"])
 
         if verb_before_schedule:
             return self.scheduler.schedule(times, self.verb(p["verb_params"], final))

@@ -12,6 +12,8 @@ from typing import Callable
 
 import torch
 
+from ..ops import kinks
+
 TensorTransform = Callable[[torch.Tensor], torch.Tensor]
 
 
@@ -19,7 +21,7 @@ def sort_channels_descending_norm(x: torch.Tensor) -> torch.Tensor:
     """(batch, channels, D) with channels in descending order of their l1
     norm: a stable ascending sort, reversed, as ``jnp.argsort`` then
     ``[:, ::-1]`` (equal norms come out in reverse order)."""
-    diff = torch.sum(torch.abs(x), dim=-1)
+    diff = torch.sum(kinks.abs(x), dim=-1)
     indices = torch.argsort(diff, dim=-1, stable=True).flip(-1)
     return torch.gather(x, 1, indices[:, :, None].expand(-1, -1, x.shape[-1]))
 
@@ -46,9 +48,9 @@ def iterative_loss(
 
     losses = []
     for i in range(n_events):
-        start_norm = torch.sum(torch.abs(residual), dim=-1)
+        start_norm = torch.sum(kinks.abs(residual), dim=-1)
         residual = residual - channels[:, i]
-        end_norm = torch.sum(torch.abs(residual), dim=-1)
+        end_norm = torch.sum(kinks.abs(residual), dim=-1)
         if ratio_loss:
             losses.append(torch.sum(end_norm / (start_norm + 1e-12)))
         else:

@@ -2,11 +2,20 @@
 trainers in ``scripts/``; only the ported names)."""
 
 from .inference import SIAMCodec, SIAMEncoding, quantize_events
+from .instrument import (Note, PlayableInstrument, build_instrument, damped_sequential,
+                         demo_phrase, repl)
+from .mp_model import MatchingPursuit
+from .pointcloud import (CanonicalOrdering, GraphEdgeEmbedding, flattened_upper_triangular,
+                         pairwise_differences)
+from .search import (BruteForceSearch, EventEmbedder, IndexedCorpus, build_index, index_corpus,
+                     k_nearest, make_embedder)
 from .siam import (Reservoir, SIAMModel, fade_tail, make_iterative_fn, make_random_sequence_fn,
                    make_streaming_fn, refine_event_alignment, refit_event_gains, siam_transform,
                    streaming_encode)
 from .siam_overfit import SIAMOverfitStep, overfit_siam
 from .siam_train import train_and_monitor
+from .songsplat import (SongSplatModel, SongSplatRun, render_song, songsplat_loss, songsplat_step,
+                        train_songsplat)
 from .splat_overfit import OverfitHierarchicalEvents, SplatFit, overfit_splat, splat_loss_transform
 from .ssm_overfit import (InstrumentModel, OverfitControlPlane, SSMFit, generate_param_dict,
                           train_model_for_segment)
@@ -16,4 +25,10 @@ __all__ = ["OverfitHierarchicalEvents", "SplatFit", "overfit_splat", "splat_loss
            "make_iterative_fn", "make_random_sequence_fn", "make_streaming_fn",
            "refine_event_alignment", "refit_event_gains", "siam_transform", "streaming_encode",
            "SIAMOverfitStep", "overfit_siam", "train_and_monitor", "InstrumentModel",
-           "OverfitControlPlane", "SSMFit", "generate_param_dict", "train_model_for_segment"]
+           "OverfitControlPlane", "SSMFit", "generate_param_dict", "train_model_for_segment",
+           "Note", "PlayableInstrument", "build_instrument", "damped_sequential", "demo_phrase",
+           "repl", "MatchingPursuit", "CanonicalOrdering", "GraphEdgeEmbedding",
+           "flattened_upper_triangular", "pairwise_differences", "BruteForceSearch",
+           "EventEmbedder", "IndexedCorpus", "build_index", "index_corpus", "k_nearest",
+           "make_embedder", "SongSplatModel", "SongSplatRun", "render_song", "songsplat_loss",
+           "songsplat_step", "train_songsplat"]

@@ -30,6 +30,7 @@ from ..gen.overfitresonance import OverfitResonanceModel
 from ..nn.anticausal import AntiCausalAnalysis
 from ..nn.init import uniform, uniform_linear
 from ..nn.multihead import MultiHeadTransform
+from ..ops import kinks
 from ..ops.fft import irfft, real_ends, rfft
 from ..ops.refit import refit_gains
 from ..ops.ste import leaky_relu_ste, sparse_softmax, straight_through
@@ -250,7 +251,7 @@ class SIAMModel(nn.Module):
         col = spec.gather(2, idx[:, None, None].expand(spec.shape[0], spec.shape[1], 1))[:, :, 0]
         mel = torch.from_numpy(_mel_basis(in_channels, 64)).to(col.device, col.dtype)
         with no_tf32():
-            return torch.log1p(torch.abs(col) @ mel.T)
+            return torch.log1p(kinks.abs(col) @ mel.T)
 
     def iterative(self, audio_or_spec: torch.Tensor, noise: Optional[torch.Tensor] = None,
                   generator: torch.Generator | None = None, do_transform: bool = True,
@@ -280,7 +281,7 @@ def _iterate(model: SIAMModel, audio_or_spec, noise, generator, do_transform, co
     spec = model.transform(audio_or_spec) if do_transform else audio_or_spec
     bound = None
     if model.residual_clamp_scale:
-        bound = model.residual_clamp_scale * torch.amax(torch.abs(spec), dim=(-2, -1),
+        bound = model.residual_clamp_scale * torch.amax(kinks.abs(spec), dim=(-2, -1),
                                                         keepdim=True)
     chs, vs, scheds, feats = [], [], [], []
     for i in range(model.n_events):

@@ -20,6 +20,7 @@ from ..losses.iterative import iterative_loss
 from ..losses.multiband_spec import flattened_multiband_spectrogram
 from ..nn.init import uniform_init
 from ..nn.multihead import MultiHeadTransform
+from ..ops import kinks
 from ..train.optim import make_train_step, optimizer
 
 
@@ -39,7 +40,7 @@ def splat_loss(recon: torch.Tensor, target: torch.Tensor, use_iterative_loss: bo
         return iterative_loss(target, recon, splat_loss_transform)
     if target_feature is None:
         target_feature = splat_loss_transform(target)
-    return torch.sum(torch.abs(target_feature - splat_loss_transform(recon.sum(1, keepdim=True))))
+    return torch.sum(kinks.abs(target_feature - splat_loss_transform(recon.sum(1, keepdim=True))))
 
 
 class OverfitHierarchicalEvents(nn.Module):

@@ -29,6 +29,7 @@ from ..device import default_device, no_tf32
 from ..losses.multiband_spec import flattened_multiband_spectrogram
 from ..nn.init import uniform, uniform_init
 from ..obs.article import AudioComponent, ImageComponent, conjure_article
+from ..ops import kinks
 from ..ops.norms import max_norm
 from ..sparse.topk import sparsify
 
@@ -190,8 +191,8 @@ def ssm_loss(model: OverfitControlPlane, target_feature: torch.Tensor,
     audio from the target's, plus the frame boundaries' differences in l1
     times ``boundary_weight``."""
     audio, boundary_diff = model()
-    recon = torch.abs(transform(audio) - target_feature).sum()
-    return recon + torch.abs(boundary_diff).sum() * boundary_weight
+    recon = kinks.abs(transform(audio) - target_feature).sum()
+    return recon + kinks.abs(boundary_diff).sum() * boundary_weight
 
 
 def make_script_step(loss_fn, opt: torch.optim.Optimizer):

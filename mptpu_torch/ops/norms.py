@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from . import kinks
 from .kinks import clip
 
 
@@ -21,7 +22,7 @@ def unit_norm(x: torch.Tensor, axis=-1, epsilon: float = 1e-8) -> torch.Tensor:
 def max_norm(
     x: torch.Tensor, axis=-1, epsilon: float = 1e-8, return_value: bool = False
 ):
-    n = torch.amax(torch.abs(x), dim=axis, keepdim=True)
+    n = torch.amax(kinks.abs(x), dim=axis, keepdim=True)
     normed = x / (n + epsilon)
     if return_value:
         return normed, n

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import kinks
+
 from .pif import fft_based_pif
 
 
@@ -16,5 +18,5 @@ def pif_distance(target: torch.Tensor, recon: torch.Tensor, freq_window_size: in
     Invariant to the phase within each time window."""
     ft = fft_based_pif(target, freq_window_size, time_window_size)
     fr = fft_based_pif(recon, freq_window_size, time_window_size)
-    return torch.sum(torch.abs(ft - fr)) / (torch.sum(torch.abs(ft)) + torch.sum(torch.abs(fr))
+    return torch.sum(kinks.abs(ft - fr)) / (torch.sum(kinks.abs(ft)) + torch.sum(kinks.abs(fr))
                                             + eps)

@@ -1,10 +1,11 @@
 """Top-k sparsification family (counterpart of ``mptpu/sparse/topk.py``),
 batched: gathers and scatters over the whole batch at once.
 
-``torch.topk`` makes no promise about the order of equal values, where
-``lax.top_k`` puts the lower index first; on inputs without ties the two
-agree. For k = 1 the port takes ``torch.argmax``, whose first index is
-``lax.top_k``'s on ties too (a dead attention of all zeros picks 0).
+``lax.top_k`` orders equal values by index, lower first, where
+``torch.topk`` makes no promise. So the port takes the first k of a stable
+descending sort, and for k = 1 ``torch.argmax``, whose first index is
+``lax.top_k``'s on ties too (a dead attention of all zeros picks 0; a
+range query over a 0/1 mask is all ties).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import default_device
+from ..ops import kinks
 from ..ops.ste import soft_dirac, straight_through
 
 
@@ -32,12 +34,13 @@ def _scatter(size: int, indices: torch.Tensor, values: torch.Tensor) -> torch.Te
 
 
 def _top_k(x: torch.Tensor, k: int):
-    """(values, indices) of the ``k`` largest entries of the last axis; for
-    ``k == 1`` the first of equal largest entries."""
+    """(values, indices) of the ``k`` largest entries of the last axis,
+    equal entries in index order (``lax.top_k``'s)."""
     if k == 1:
         idx = torch.argmax(x, dim=-1, keepdim=True)
         return x.gather(-1, idx), idx
-    return torch.topk(x, k, dim=-1)
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
 
 
 def sparsify(
@@ -142,7 +145,7 @@ def encourage_sparsity_loss(
     """L1 penalty on everything past the top ``n_unpenalized`` activations."""
     flat = encoding.reshape(encoding.shape[0], -1)
     srt = torch.sort(flat, dim=-1, descending=True).values
-    return torch.abs(srt[:, n_unpenalized:]).sum() * sparsity_loss_weight
+    return kinks.abs(srt[:, n_unpenalized:]).sum() * sparsity_loss_weight
 
 
 def to_key_points(x: torch.Tensor, n_to_keep: int = 64) -> torch.Tensor:

@@ -47,6 +47,8 @@ from mptpu.train.guard import StormGuard as JGuard
 from mptpu_torch import convert
 from mptpu_torch.data import synthetic as tsyn
 from mptpu_torch.gen import transfer as ttransfer
+from mptpu_torch.losses import iterative_loss as t_iterative_loss
+from mptpu_torch.models import ssm_overfit as tssm
 from mptpu_torch.models import siam as ts
 from mptpu_torch.models import siam_overfit as tso
 from mptpu_torch.nn import linear as tlinear
@@ -189,6 +191,9 @@ def tgrad(fn, x):
     return g.numpy()
 
 
+DEAD_TARGET = np.asarray([[[1.0, 0.0, 2.0, -0.5]]], np.float32)
+SILENCE = torch.zeros((1, 1, 1024))
+
 KINKS = {
     # name: (mptpu's op, the port's op, inputs with an entry exactly at the kink)
     "leaky_relu_ste": (lambda x: jste.leaky_relu_ste(x, 0.1),
@@ -211,6 +216,19 @@ KINKS = {
         [np.float32(1e-12)]),
     "clip": (lambda x: jnp.clip(x, -10.0, 10.0), lambda x: kinks.clip(x, -10.0, 10.0),
              [10.0, -10.0, 3.0, 11.0]),
+    "abs": (jnp.abs, kinks.abs, [0.0, -0.0, 1.0, -1.0]),
+    # the second channel renders exactly 0, and the first leaves residual
+    # entries of exactly 0: each |residual| passes JAX's gradient there
+    "iterative_loss_dead_channel": (
+        lambda x: j_iterative_loss(jnp.asarray(DEAD_TARGET), x, lambda a: a),
+        lambda x: t_iterative_loss(torch.from_numpy(DEAD_TARGET), x, lambda a: a),
+        [[[1.0, 0.0, 0.0, -0.5], [0.0, 0.0, 0.0, 0.0]]]),
+    # scripts/ssm_article.py:95-96 on silent audio, whose features equal
+    # the target's: the boundary term's |0| passes JAX's gradient
+    "ssm_loss_boundary": (
+        lambda x: jnp.abs(x).sum() * 1.0,
+        lambda x: tssm.ssm_loss(lambda: (SILENCE, x), tssm.transform(SILENCE)),
+        [0.0, -0.0, 0.25, 0.0]),
 }
 
 
@@ -218,7 +236,8 @@ KINKS = {
 def test_kink_gradient_is_jaxs(name):
     """At the exact kink each op's gradient is jax.grad's: a leaky relu's
     is 1 at 0 (F.leaky_relu gives its slope), a clip's half at a bound
-    (torch.clamp passes all of it)."""
+    (torch.clamp passes all of it), an abs's 1 at 0.0 and -0.0
+    (torch.abs passes none)."""
     jfn, tfn, x = KINKS[name]
     x = np.asarray(x, np.float32)
     np.testing.assert_allclose(tfn(torch.from_numpy(x)).detach().numpy(),

@@ -147,6 +147,34 @@ def test_top_one_ties_break_at_the_first_index(length):
     np.testing.assert_array_equal(tv[0].numpy(), np.asarray(jv[0]))
 
 
+@pytest.mark.parametrize("k", [2, 32])
+def test_top_k_ties_keep_index_order(k):
+    """k > 1 on equal values gives lax.top_k's indices: larger values
+    first, equal ones lowest index first. The input is a song splat's range
+    query, a 0/1 mask of 190 events with 34 in range (every value tied);
+    torch.topk returned [92, 15, 96, ...] for lax.top_k's [2, 3, 11, ...]."""
+    rng = np.random.default_rng(12)
+    mask = np.zeros((2, 190), np.float32)
+    for row in mask:
+        row[rng.choice(190, 34, replace=False)] = 1.0
+    mask[1, 7] = 2.0   # one larger value ahead of the ties
+    j_vals, j_idx = jax.lax.top_k(jnp.asarray(mask), k)
+    t_vals, t_idx = tsp.topk._top_k(torch.from_numpy(mask), k)
+    np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
+    np.testing.assert_array_equal(t_vals.numpy(), np.asarray(j_vals))
+    x = mask.reshape(2, 10, 19)
+    want = jsp.sparsify(jnp.asarray(x), k, return_indices=True)
+    got = tsp.sparsify(torch.from_numpy(x), k, return_indices=True)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    for j, t in zip(jsp.sparsify2(jnp.asarray(x), k), tsp.sparsify2(torch.from_numpy(x), k)):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    vecs = normal((2, 4, 190), 31)
+    jv = jsp.sparsify_vectors(jnp.asarray(vecs), jnp.asarray(mask), k)
+    tv = tsp.sparsify_vectors(torch.from_numpy(vecs), torch.from_numpy(mask), k)
+    np.testing.assert_array_equal(tv[1].numpy(), np.asarray(jv[1]))
+    np.testing.assert_array_equal(tv[0].numpy(), np.asarray(jv[0]))
+
+
 def test_encourage_sparsity_loss_matches_mptpu():
     x = normal((2, 8, 32), 8)
     assert_same(lambda v: jsp.encourage_sparsity_loss(v, n_unpenalized=20),
