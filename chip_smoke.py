@@ -7,7 +7,9 @@ audio-splatting overfit at its full width, the SIAM codec's serving
 path at its full width, the playable state-space model's overfit at its
 full width, SIAM training (both trainers) at its full width, and the
 models on those layers: the whole-song splat trainer, the playable
-instrument, event search and the learned-atom MP.
+instrument, event search and the learned-atom MP; then the long-tail
+overfit models (room simulation, textural, functional song, audio
+operator) and the remaining layers.
 
     python3 chip_smoke.py
 
@@ -141,6 +143,19 @@ Phases, each printing lines (any failure exits non-zero):
    channels, gradients in float64; 20 Adam steps at lr 1e-2, one traced);
    no launch of the other five kernels, nor of the cluster step kernel
    outside ``index_corpus``;
+11. (after phase 10, before phase 5's times) the long-tail models (ROADMAP
+   A11) at their scripts' defaults, each held to ``mptpu``'s loss
+   trajectory from the port's seed-0 parameters and the same draws
+   (``LONGTAIL_REFERENCE``, from tests/reference/*_trajectory.py): the room
+   simulation (block 64, 512 frames, 5 x 17 x 9 voxels; card against CPU)
+   and its 5 x 5 overfit at lr 1e-2; ``train_textural``, ``train_funcsong``
+   and ``train_audiooperator`` (random batches and ``--overfit``; its
+   trajectories at 2^13 samples in runs of their own), each after one step
+   on the card against the CPU from the same parameters and batch (loss;
+   gradients in float64), each with ms a step, a traced step (launches,
+   busy and idle share) and peak memory; the A4 layers, the five custom
+   gradients, the phase codec and the multiresolution shells at small
+   sizes, card against CPU in float64; no launch of the six kernels;
 5. each kernel's time beside its plain version's, its bound and, for the
    boundary kernel, one ``torch.matmul`` computing the same product; the two
    step kernels per step from a chain of launches, with and without
@@ -148,7 +163,7 @@ Phases, each printing lines (any failure exits non-zero):
    multiband band beside the whole-encode kernel doing the same steps in one
    launch; the two whole-encode kernels and the cluster step kernel by
    cluster size, with the clusters the card holds at once beside each;
-11. a ``kernels`` JSON line, then the result line
+12. a ``kernels`` JSON line, then the result line
     ``{"ok": true, "device": {...}}``.
 
 It needs CUDA and the ``mptpu_torch`` package beside it, and exits with
@@ -278,6 +293,95 @@ MODELS_SMALL = dict(
 # the CPU reads 1.5e-5 at full width, 1.6e-7 small: tests/reference/mp_model_lr.py)
 MODELS_TOL = dict(loss=1e-4, audio=1e-4, gradients64=1e-8, gradients32=1e-3, embedding=1e-4,
                   trajectory=1e-4)
+# phase 11, the long-tail models (ROADMAP A11): mptpu's losses a step from the port's seed-0
+# parameters and the same draws, on JAX-CPU (python3 tests/reference/<model>_trajectory.py;
+# roomsim, textural and funcsong at their scripts' defaults, the operator at 2^13 samples and
+# the script's other widths, since its 2^15 takes some 12 GiB a package on the CPU)
+LONGTAIL_REFERENCE = {
+    "roomsim": [0.00348664, 0.0333479, 0.00798386, 0.0112439, 0.012491, 0.00997293, 0.00734712,
+                0.00556996, 0.00450103, 0.00402454, 0.00393553, 0.00385491, 0.00350677,
+                0.00291676, 0.00230956, 0.00187895, 0.00166089, 0.00156605, 0.00148665,
+                0.00137142],
+    "textural": [3771.09, 3771.06, 3771.03, 3770.98, 3770.92, 3770.84, 3770.76, 3770.66, 3770.55,
+                 3770.44, 3770.3, 3770.14, 3769.97, 3769.78, 3769.57, 3769.34, 3769.09, 3768.82,
+                 3768.53, 3768.21],
+    # the first 10 steps of funcsong_trajectory.py's 20: mptpu's float32 run, and the frozen
+    # control (the seed-0 model on the same crops, no update) that its rise is read against
+    "funcsong": [1996400.0, 2043680.0, 2093990.0, 2109380.0, 2140010.0, 2143310.0, 2154240.0,
+                 2160560.0, 2198630.0, 2216160.0],
+    "funcsong_control": [1999010.0, 2005320.0, 1996030.0, 2000220.0, 1993730.0, 1996000.0,
+                         1995840.0, 2000140.0, 1991910.0, 1993820.0],
+    "operator_random": [-0.00424888, 0.40029, -0.0250328, -0.00905275, 0.0123024, 0.0402766,
+                        -0.00949427, -0.0501565, -0.0187325, 31.1757],
+    "operator_overfit": [-0.00340325, 13.3763, -0.000431776, -0.0, -0.0217872, -0.0013997,
+                         -0.00267279, -0.00483775, -0.0106047, -0.0262583]}
+# the same at the rehearsal sizes (--smoke, and roomsim_trajectory.py --small)
+LONGTAIL_REFERENCE_SMALL = {
+    "roomsim": [0.0312445, 0.0215076, 0.0146056, 0.0109744, 0.00854039, 0.00666206],
+    "textural": [58.6803, 58.6774, 58.6735, 58.6687, 58.6629, 58.656],
+    "funcsong": [25219.7, 25160.9, 25626.7, 25660.5],
+    "funcsong_control": [25097.8, 25233.6, 25194.1, 25440.1],
+    "operator_random": [-5.71765e-08, -0.0, -0.0, -0.0],
+    "operator_overfit": [-0.0, -5.17368e-05, -0.000218868, -0.000611007]}
+# phase 11 at the scripts' defaults: scripts/roomsim.py (block 64, 512 frames, a 5 x 17 x 9
+# room; its overfit at 5 x 5, lr 1e-2), scripts/textural.py (2^16 samples, 64 events, 64 x
+# 2,048 atoms, latent 16), scripts/funcsong.py (a 30 s song, crops of 2^15, batch 4, 256
+# position channels, hidden 256, 4 layers, 64 resonances), scripts/audiooperator.py (2^15
+# samples, 512 bands, model 512, latent 64, envelope 128, batch 4, pool 512 / 128), each for
+# as many steps as mptpu's trajectory has (the operator's at 2^13 samples, a run of its own)
+LONGTAIL = dict(
+    room=dict(block=64, frames=512, width=5, height=17, depth=9, room=5, steps=20, lr=1e-2),
+    textural=dict(smoke=False, steps=20),
+    funcsong=dict(smoke=False, steps=10, control=True),
+    operator=dict(smoke=False, steps=10, reference_samples=2**13),
+    reference=LONGTAIL_REFERENCE)
+LONGTAIL_SMALL = dict(
+    room=dict(block=16, frames=32, width=5, height=5, depth=5, room=3, steps=6, lr=1e-2),
+    textural=dict(smoke=True, steps=6),
+    # at --smoke the loss does not move off the untrained model's within the run, in mptpu
+    # too (tests/reference/funcsong_trajectory.py --smoke --steps 12: the frozen control 3.1e-2
+    # of mptpu's largest loss from its trajectory, the four sound runs 2.9e-2 to 4.3e-2): the
+    # rehearsal prints the rise over the control and cannot gate on it; the card's run does
+    funcsong=dict(smoke=True, steps=4, control=False),
+    operator=dict(smoke=True, steps=4, reference_samples=2**11),
+    reference=LONGTAIL_REFERENCE_SMALL,
+    # the smoke operator's losses are float32 rounding of a difference of two sums of about
+    # 7.0 (mptpu's random-batch ReLU head dies after one step there too; its largest loss is
+    # 5.7e-8): the random batches are held within 20 times that (1.1e-6, two places of 7.0; the
+    # port on the CPU read 3.1), the --overfit steps, which fall to -6.1e-4, within 1e-2 of
+    # their largest (the port on the CPU read 7.8e-4)
+    tol=dict(operator_random_trajectory=20.0, operator_overfit_trajectory=1e-2,
+             funcsong_trajectory=0.1))
+# phase 11's gates, each set from a CPU measurement before the first run on a card:
+# - the room's recording and frames, card against CPU, of their peak (the port against mptpu
+#   on the CPU: 3e-8);
+# - one step card against CPU: the loss (relative; the operator's against the sum of its terms,
+#   the target's pooled norms, since it is their difference) and float64 gradients (of each
+#   parameter's largest), as for the other models; the float64 loss within gradients64;
+# - funcsong's: its oscillators' phases reach 3e5 rad and move by 3.5e5 rad per unit of
+#   tension, so float32 keeps no digit of them, and one float64 place of every tension moves
+#   the float64 gradients by 2.1e-3 of the worst parameter's largest (median 1.3e-3;
+#   tests/reference/funcsong_trajectory.py at the script's widths): two devices, which round
+#   the phases otherwise, hold their float64 gradients within 1e-3 and their float32 losses
+#   within 1e-2 (the port's float32 first loss 4.2e-4 from its float64);
+# - a trajectory within 1e-4 of mptpu's largest loss (the port on the CPU: roomsim 1.1e-7,
+#   textural 4.5e-7, the operator's --overfit 5.0e-6); the operator's random batches, whose
+#   loss leaps to 31 at the tenth step, within 2e-2 (the CPU read 6.8e-3 at that step);
+# - funcsong's trajectory, which no other run can follow step by step: Adam's first steps are
+#   about lr times the gradient's sign, and the signs of the gradients near 0 are rounding,
+#   so runs part after one step (funcsong_trajectory.py, from one init and the same batches:
+#   mptpu's float64 run, the port's float32 and float64 runs, 7.0e-2, 5.7e-2 and 4.4e-2 of
+#   mptpu's float32 run's largest loss from it over 10 steps, 0.28 to 0.68 over 20; the frozen
+#   control 0.10, between them). Held two ways over 10 steps: each step within 0.15 of mptpu's
+#   largest loss (against a blow-up), and the rise over the frozen control on the same crops
+#   (the median over the last half of the steps of loss / control, less 1) within 1/4 to 3
+#   times mptpu's: mptpu's float32 run rises 0.080, its float64 run 0.119, the port's 0.128 and
+#   0.127, the card's float32 run before this gate 0.043 (PR 12's call 5); the control 0;
+# - the A4 layers, card against CPU in float64, of each tensor's largest
+LONGTAIL_TOL = dict(room=1e-5, loss=1e-5, gradients64=1e-10, funcsong_loss=1e-2,
+                    funcsong_gradients64=1e-3, trajectory=1e-4,
+                    operator_random_trajectory=2e-2, funcsong_trajectory=0.15,
+                    funcsong_rise=(0.25, 3.0), layers=1e-10)
 # the probe's kinds: label -> (kind, programmatic)
 PROBE_KINDS = {"grid": ("grid", False), "grid chained": ("grid", True), "fori": ("fori", False)}
 HOLD_CYCLES = 20_000_000   # about 10 ms of device spinning ahead of a timed run
@@ -2698,9 +2802,7 @@ def models_phase(dev, cfg, sync, records=None):
             if mp_ms is None:   # the first learning rate's steps are the ones timed
                 mp_ms = 1e3 * (time.perf_counter() - starts[1]) / (len(want) - 1)
                 mp_peak = peak_gib()
-            losses = torch.stack(losses).tolist()
-            gap = max(abs(u - v) for u, v in zip(losses, want)) / scale
-            trained[lr] = losses, gap
+            trained[lr] = torch.stack(losses).tolist()
 
         def mp_step():
             opt.zero_grad(set_to_none=True)
@@ -2713,10 +2815,7 @@ def models_phase(dev, cfg, sync, records=None):
               f"{ch_err:.2e} of the largest, loss {cl:.6g} against {hl:.6g}, gradients "
               f"float64 {g64:.2e}, float32 {g32:.2e} of the largest; Adam steps, "
               f"{mp_ms:.1f} ms a step (host clock, after the first), peak memory "
-              f"{mp_peak:.3f} GiB; "
-              + "; ".join(f"lr {lr:g}, {len(v[0])} steps, loss " + ", ".join(
-                  f"{x:.6g}" for x in v[0]) + f" (mptpu's trajectory {v[1]:.2e} of the target "
-                  f"feature's l1 norm {scale:.6g} away at most)" for lr, v in trained.items()))
+              f"{mp_peak:.3f} GiB")
         if on_card:
             traced = device_time_by_kernel(mp_step, sync)
             print(f"models (d) learned-atom MP, one step traced: {traced[2]} kernel launches")
@@ -2724,15 +2823,11 @@ def models_phase(dev, cfg, sync, records=None):
         if not same or ch_err > MODELS_TOL["audio"] or g64 > MODELS_TOL["gradients64"]:
             fail(f"models: the learned-atom MP differs from the CPU (events identical {same}, "
                  f"channels {ch_err:.2e}, float64 gradients {g64:.2e})")
-        for lr, (losses, gap) in trained.items():
-            if not np.isfinite(losses).all() or gap > MODELS_TOL["trajectory"]:
-                fail(f"models: the learned-atom MP's loss at lr {lr:g} is not finite or "
-                     f"{gap:.2e} of the feature's norm from mptpu's trajectory")
         # mptpu's loss rises at lr 1e-2 at these widths and falls at lr 1e-3
-        losses = trained[c["falls_at"]][0]
-        if not losses[-1] < losses[0]:
-            fail(f"models: the learned-atom MP's loss at lr {c['falls_at']:g} did not fall "
-                 f"({losses[0]:.6g} -> {losses[-1]:.6g})")
+        for lr, losses in trained.items():
+            trajectory_check(f"models (d) learned-atom MP, lr {lr:g}", losses,
+                             c["reference"][lr], MODELS_TOL["trajectory"], lr == c["falls_at"],
+                             scale, "the target feature's l1 norm")
 
         # (e) no kernel but the cluster step kernel, and that one in (c) alone
         launches = dict(kernels.LAUNCHES)
@@ -2749,9 +2844,515 @@ def models_phase(dev, cfg, sync, records=None):
         tmp.cleanup()
 
 
+def trajectory_check(name, losses, reference, tol, falls, scale=None,
+                     scale_name="mptpu's largest loss"):
+    """Hold a trajectory of losses to ``mptpu``'s: every step within ``tol``
+    of ``scale`` (mptpu's largest loss unless given; ``scale_name`` says
+    what it is); where ``falls``, the median of the last quarter (at least
+    3 steps) below the median of the first (a median of 3 or more, so that
+    no one spike carries it). ``name`` starts with the phase. Returns the
+    largest gap."""
+    m, p = np.asarray(reference, np.float64), np.asarray(losses, np.float64)
+    if len(p) != len(m) or not np.isfinite(p).all():
+        fail(f"{name}: {len(p)} losses (finite: {np.isfinite(p).all()}), mptpu's trajectory "
+             f"has {len(m)}")
+    scale = float(np.abs(m).max()) if scale is None else scale
+    gap = float(np.abs(p - m).max() / scale)
+    q = max(3, len(m) // 4)
+    first, last = float(np.median(p[:q])), float(np.median(p[-q:]))
+    print(f"{name}: loss every step " + ", ".join(f"{v:.7g}" for v in p)
+          + f"; mptpu's trajectory {gap:.2e} of {scale_name} ({scale:.7g}) away at most (gate "
+          f"{tol:g}); medians of the first and last {q}: {first:.7g} -> {last:.7g}"
+          + (f" (mptpu's {np.median(m[:q]):.7g} -> {np.median(m[-q:]):.7g}, which falls: "
+             f"gated on a fall)" if falls else ""))
+    if gap > tol:
+        fail(f"{name}: {gap:.2e} of {scale_name} from mptpu's trajectory (gate {tol:g})")
+    if falls and not last < first:
+        fail(f"{name}: the loss did not fall ({first:.7g} -> {last:.7g}), where mptpu's falls")
+    return gap
+
+
+def grads_err(a, b):
+    """The largest of ``share_err`` over the parameters (named alike)."""
+    return max(share_err(a[k], b[k]) for k in b)
+
+
+def one_step_both(build, loss_of, dev):
+    """{(device type, dtype name): (loss, {parameter: gradient})} of one
+    forward and backward: ``build(device)`` returns the model (the same
+    parameters on every device), ``loss_of(model, device, dtype)`` its
+    loss on the batch moved there."""
+    import torch
+
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        for name in ("float32", "float64"):
+            dtype = getattr(torch, name)
+            m = build(d).to(dtype)
+            loss = loss_of(m, d, dtype)
+            names, params = zip(*m.named_parameters())
+            grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+            out[(d.type, name)] = (float(loss.detach()), dict(zip(names, grads)))
+            del m
+    return out
+
+
+def longtail_phase(dev, cfg, sync):
+    """Phase 11, the long-tail models (ROADMAP A11) at their scripts'
+    defaults and the A4 layers, launch counts set to 0 first and read last:
+    (a) ``simulate_room`` at scripts/roomsim.py's defaults, the card
+    against the CPU, then ``overfit_room`` held to ``mptpu``'s trajectory;
+    (b) ``train_textural``, (c) ``train_funcsong`` and (d)
+    ``train_audiooperator`` (random batches and ``--overfit``) at their
+    scripts' defaults, each after one step on the card against the CPU
+    from the same parameters and batch, each trajectory held to
+    ``mptpu``'s (tests/reference/*_trajectory.py); (e) the A4 layers and the
+    multiresolution shells at small sizes, the card against the CPU in
+    float64; none of the six kernels launched. Each of (a) to (d) prints
+    its ms a step, launches, device-busy time and idle share (one traced
+    step) and peak memory."""
+    import importlib
+    import os
+    import tempfile
+
+    import torch
+
+    from mptpu_torch import kernels
+    from mptpu_torch.models import audiooperator as tao
+    from mptpu_torch.models import funcsong as tfs
+    from mptpu_torch.models import textural as ttx
+    from mptpu_torch.ops.stft import stft
+    from mptpu_torch.train.optim import Adam
+
+    troom = importlib.import_module("mptpu_torch.gen.roomsim")
+    on_card = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    ref, tol = cfg["reference"], dict(LONGTAIL_TOL, **cfg.get("tol", {}))
+    quiet = lambda s: None   # noqa: E731
+    tmp = tempfile.TemporaryDirectory()
+
+    def peak_reset():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak_gib():
+        """Peak memory since the last reset, as text ("not measured" off a card)."""
+        if not on_card:
+            return "not measured (no card)"
+        return f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB"
+
+    def traced_line(what, fn, step_ms):
+        if not on_card:
+            print(f"longtail {what}: trace not measured (no card)")
+            return
+        traced = device_time_by_kernel(fn, sync)
+        print(f"longtail {what}, one step traced: {traced[2]} kernel launches")
+        print(busy_line(f"longtail {what}, traced", traced, step_ms))
+
+    def step_ms(starts, t_end):
+        """ms a step by the host clock, after the first (warm-up) step."""
+        return 1e3 * (t_end - starts[1]) / (len(starts) - 1)
+
+    def card_against_cpu(what, runs, loss_tol, grad_tol, loss_scale=None):
+        """``loss_scale``: the magnitude the float32 loss is held against
+        where it is a difference of nearly equal terms (default: the loss)."""
+        (l32, g32), (h32, hg32) = runs[(dev.type, "float32")], runs[("cpu", "float32")]
+        (l64, g64), (h64, hg64) = runs[(dev.type, "float64")], runs[("cpu", "float64")]
+        loss_rel = abs(l32 - h32) / (loss_scale or abs(h32))
+        loss64 = abs(l64 - h64) / abs(h64)
+        e32, e64 = grads_err(g32, hg32), grads_err(g64, hg64)
+        print(f"longtail {what}, one step on the card against the CPU from the same parameters "
+              f"and batch: loss {l32:.7g} against {h32:.7g} ({loss_rel:.2e} of "
+              f"{'the terms, ' + format(loss_scale, '.6g') if loss_scale else 'it'}; float64 "
+              f"{loss64:.2e}); gradients, max abs err over the largest of each parameter: "
+              f"float64 {e64:.2e}, float32 {e32:.2e} (gates: loss {loss_tol:g}, float64 "
+              f"gradients {grad_tol:g})")
+        if loss_rel > loss_tol or e64 > grad_tol or loss64 > grad_tol:
+            fail(f"longtail: {what}: the card's step is off the CPU's (loss {loss_rel:.2e}, "
+                 f"float64 loss {loss64:.2e}, float64 gradients {e64:.2e})")
+
+    try:
+        kernels.reset_launches()
+        t_phase = time.perf_counter()
+
+        # (a) the room
+        c = cfg["room"]
+        size = dict(block_size=c["block"], n_frames=c["frames"], width=c["width"],
+                    height=c["height"], depth=c["depth"])
+        troom.simulate_room(**size, device=dev, log=quiet)   # warm-up
+        peak_reset()
+        sims = [troom.simulate_room(**size, device=dev, log=quiet) for _ in range(3)]
+        sim_peak = peak_gib()
+        host_sim = troom.simulate_room(**size, device=cpu, log=quiet)
+        rec_err = share_err(sims[-1].recording, host_sim.recording)
+        frames_err = share_err(sims[-1].frames, host_sim.frames)
+        sim_ms = [1e3 * s.seconds for s in sims]
+        print(f"longtail (a) simulate_room at {c['block']} x {c['frames']} frames, "
+              f"{c['width']} x {c['height']} x {c['depth']} voxels: "
+              + ", ".join(f"{v:.1f}" for v in sim_ms)
+              + f" ms a simulation (host clock, ending in a synchronisation; the CPU's "
+              f"{1e3 * host_sim.seconds:.1f} ms); peak memory {sim_peak}; card against "
+              f"CPU: recording {rec_err:.2e}, frames {frames_err:.2e} of the peak (gate "
+              f"{tol['room']:g})")
+        if rec_err > tol["room"] or frames_err > tol["room"]:
+            fail(f"longtail: the room's recording ({rec_err:.2e}) or frames ({frames_err:.2e}) "
+                 f"off the CPU's")
+        t_in = torch.from_numpy(sims[-1].transfer.astype(np.float32)).to(dev)
+        c_in = torch.from_numpy(sims[-1].control).to(dev)
+
+        def simulate():
+            with torch.no_grad():
+                troom.roomsim(t_in, c_in)
+
+        traced_line("(a) simulate_room", simulate, min(sim_ms))
+        rec = sims[-1].recording
+        target = (rec / (rec.abs().max() + 1e-9)).reshape(1, 1, -1)
+        peak_reset()
+        fit = troom.overfit_room(target, c["room"], c["block"], c["frames"], c["steps"], c["lr"],
+                                 device=dev, log=quiet)
+        fit_peak = peak_gib()
+        ms = step_ms(fit.step_starts, fit.t_end)
+        print(f"longtail (a) overfit_room at {c['room']} x {c['room']}, {c['frames']} frames, lr "
+              f"{c['lr']:g}: {c['steps']} steps, {ms:.1f} ms a step (host clock, after the first); "
+              f"peak memory {fit_peak}")
+        trajectory_check("longtail (a) overfit_room", fit.losses, ref["roomsim"],
+                         tol["trajectory"], falls(ref["roomsim"]))
+        adam = Adam(c["lr"])
+        st = adam.init(list(fit.model.parameters()))
+
+        def room_step():
+            params = list(fit.model.parameters())
+            grads = torch.autograd.grad(troom.room_loss(fit.model, target), params)
+            updates, _ = adam.update(grads, st)
+            with torch.no_grad():
+                torch._foreach_add_(params, updates)
+
+        traced_line("(a) overfit_room", room_step, ms)
+        del sims, host_sim, fit
+
+        # (b) the textural model
+        c = cfg["textural"]
+        size = dict(ttx.SMOKE) if c["smoke"] else dict(n_samples=2**16, n_events=64, n_atoms=64,
+                                                       atom_size=2048)
+        seg = torch.from_numpy(ttx.textural_target(size["n_samples"])).reshape(1, 1, -1)
+        state = ttx.TexturalModel(latent_dim=16, device=cpu, **size).state_dict()
+
+        def build_textural(d):
+            m = ttx.TexturalModel(latent_dim=16, device=d, **size)
+            m.load_state_dict(state)
+            return m
+
+        card_against_cpu("(b) textural", one_step_both(
+            build_textural, lambda m, d, dt: ttx.textural_loss(
+                m, stft(seg.to(d, dt), 2048, 256, pad=True))[0], dev),
+            tol["loss"], tol["gradients64"])
+        peak_reset()
+        run = ttx.train_textural(iterations=c["steps"], smoke=c["smoke"],
+                                 out=os.path.join(tmp.name, "textural"), device=dev, log=quiet)
+        tex_peak = peak_gib()
+        ms = step_ms(run.step_starts, run.t_end)
+        print(f"longtail (b) train_textural at {size['n_samples']} samples, "
+              f"{size['n_events']} events, {size['n_atoms']} x {size['atom_size']} atoms, latent "
+              f"16: {c['steps']} steps, {ms:.1f} ms a step (host clock, after the first); peak "
+              f"memory {tex_peak}")
+        trajectory_check("longtail (b) train_textural", run.losses, ref["textural"],
+                         tol["trajectory"], falls(ref["textural"]))
+        adam = Adam(1e-3)
+        st = adam.init(list(run.model.parameters()))
+        tspec = stft(seg.to(dev), 2048, 256, pad=True)
+        traced_line("(b) train_textural", lambda: ttx.textural_step(run.model, adam, st, tspec),
+                    ms)
+        del run
+
+        # (c) the functional song
+        c = cfg["funcsong"]
+        s = tfs.SMOKE if c["smoke"] else dict(segment_samples=2**15, pos_channels=256,
+                                              hidden=256, layers=4, batch_size=4)
+        n, ch = s["segment_samples"], s["pos_channels"]
+        song = torch.from_numpy(tfs.funcsong_song())
+        starts = torch.from_numpy(np.random.default_rng(0).integers(   # the first crop of the
+            0, song.shape[-1] - n, size=s["batch_size"])[:1])           # trainer's first batch
+        f_target, f_pos = tfs.crop_batch(song, starts, n, ch)   # on the CPU, moved to both
+        state = tfs.FuncSong(n, ch, s["hidden"], s["layers"], device=cpu).state_dict()
+
+        def build_funcsong(d):
+            m = tfs.FuncSong(n, ch, s["hidden"], s["layers"], device=d)
+            m.load_state_dict(state)
+            return m
+
+        card_against_cpu("(c) funcsong, the first crop", one_step_both(
+            build_funcsong, lambda m, d, dt: tfs.funcsong_loss(
+                m, f_target.to(d, dt), f_pos.to(d, dt))[0], dev),
+            tol["funcsong_loss"], tol["funcsong_gradients64"])
+        peak_reset()
+        run = tfs.train_funcsong(iterations=c["steps"], smoke=c["smoke"],
+                                 out=os.path.join(tmp.name, "funcsong"), device=dev, log=quiet)
+        fs_peak = peak_gib()
+        ms = step_ms(run.step_starts, run.t_end)
+        print(f"longtail (c) train_funcsong, a {run.total_samples}-sample song, crops of {n}, "
+              f"batch {s['batch_size']}, {ch} position channels, hidden {s['hidden']}, "
+              f"{s['layers']} layers, 64 resonances ({run.n_params} parameters): {c['steps']} "
+              f"steps, {ms:.1f} ms a step (host clock, after the first); peak memory "
+              f"{fs_peak}")
+        trajectory_check("longtail (c) train_funcsong", run.losses, ref["funcsong"],
+                         tol["funcsong_trajectory"], falls(ref["funcsong"]))
+        # the frozen control: the seed-0 model's loss on each step's crops (those the trainer
+        # drew) with no update; the rise over it is the gate that a run must train to pass
+        frozen, song_d, rng = build_funcsong(dev), song.to(dev), np.random.default_rng(0)
+        with torch.no_grad():
+            control = torch.stack([tfs.funcsong_loss(frozen, *tfs.crop_batch(
+                song_d, torch.from_numpy(rng.integers(0, song.shape[-1] - n,
+                                                      size=s["batch_size"])), n, ch))[0]
+                for _ in range(c["steps"])]).tolist()
+        rise, want = rise_over(run.losses, control), rise_over(ref["funcsong"],
+                                                               ref["funcsong_control"])
+        lo, hi = tol["funcsong_rise"]
+        print(f"longtail (c) the frozen control on the same crops: loss every step "
+              + ", ".join(f"{v:.7g}" for v in control) + f"; the run's rise over it {rise:.4f}, "
+              f"mptpu's {want:.4f}, {rise / want:.3f} of it (gate {lo:g} to {hi:g}"
+              + ("" if c["control"] else "; not gated at this size") + ")")
+        if c["control"] and not lo <= rise / want <= hi:
+            fail(f"longtail: (c) train_funcsong rose {rise:.4f} over the frozen control, "
+                 f"{rise / want:.3f} of mptpu's {want:.4f} (gate {lo:g} to {hi:g})")
+        del frozen, song_d
+        adam = Adam(1e-3)
+        st = adam.init(list(run.model.parameters()))
+        tgt, pos = f_target.to(dev), f_pos.to(dev)
+        traced_line("(c) train_funcsong", lambda: tfs.funcsong_step(run.model, adam, st, tgt,
+                                                                    pos), ms)
+        del run
+
+        # (d) the audio operator
+        c = cfg["operator"]
+        w = dict(tao.SMOKE) if c["smoke"] else dict(
+            n_samples=2**15, n_bands=512, model_dim=512, envelope_resolution=128, latent_dim=64,
+            pool_window=512, pool_step=128)
+        n, ref_n = w["n_samples"], c["reference_samples"]
+        nb, er, ld = w["n_bands"], w["envelope_resolution"], w["latent_dim"]
+        batch = tao.make_batch(torch.Generator().manual_seed(0), 4, n, nb, 2048.0, er, ld, cpu)
+        enc = tao.times_encoding(4, n, nb, 2048.0, cpu)
+        state = tao.AudioOperator(er, ld, 2 * nb, w["model_dim"], device=cpu).state_dict()
+
+        def build_operator(d):
+            m = tao.AudioOperator(er, ld, 2 * nb, w["model_dim"], device=d)
+            m.load_state_dict(state)
+            return m
+
+        # the envelope loss is the difference of two sums of pooled norms, nearly equal
+        # while the recon is small: its float32 rounding is held against the sum of the
+        # target's pooled norms (its terms), as tests/test_torch_longtail.py holds it
+        pooled = torch.nn.functional.avg_pool1d(batch[0].double().abs(), w["pool_window"],
+                                                w["pool_step"], padding=w["pool_step"],
+                                                count_include_pad=True)
+        terms = float(torch.linalg.vector_norm(pooled, dim=-1).sum())
+        card_against_cpu(f"(d) audiooperator at {n} samples", one_step_both(
+            build_operator, lambda m, d, dt: tao.operator_loss(
+                m, tuple(b.to(d, dt) for b in batch), enc.to(d, dt), w["pool_window"],
+                w["pool_step"]), dev),
+            tol["loss"], tol["gradients64"], loss_scale=terms)
+        for overfit in (False, True):
+            label = "--overfit" if overfit else "random batches"
+            peak_reset()
+            run = tao.train_audiooperator(iterations=c["steps"], overfit=overfit, out=None,
+                                          device=dev, log=quiet, **w)
+            op_peak = peak_gib()
+            ms = step_ms(run.step_starts, run.t_end)
+            print(f"longtail (d) train_audiooperator ({label}) at {w['n_samples']} samples, "
+                  f"{nb} bands, model {w['model_dim']}, latent {ld}, envelope {er}, batch 4, "
+                  f"pool {w['pool_window']}/{w['pool_step']}: {c['steps']} steps, {ms:.1f} ms a "
+                  f"step (host clock, after the first), loss every step "
+                  + ", ".join(f"{v:.6g}" for v in run.losses) + f"; peak memory "
+                  f"{op_peak}")
+            if not np.isfinite(run.losses).all():
+                fail(f"longtail: train_audiooperator ({label}) gave a loss that is not finite")
+            if not overfit:
+                adam = Adam(1e-3)
+                st = adam.init(list(run.model.parameters()))
+                b = tao.make_batch(torch.Generator().manual_seed(1), 4, w["n_samples"], nb,
+                                   2048.0, er, ld, dev)
+                full_enc = tao.times_encoding(4, w["n_samples"], nb, 2048.0, dev)
+                traced_line(f"(d) train_audiooperator at {w['n_samples']} samples",
+                            lambda: tao.operator_step(run.model, adam, st, b, full_enc,
+                                                      w["pool_window"], w["pool_step"]), ms)
+                del b, full_enc
+            del run
+            key = "operator_overfit" if overfit else "operator_random"
+            run = tao.train_audiooperator(iterations=len(ref[key]), overfit=overfit, out=None,
+                                          device=dev, log=quiet, **dict(w, n_samples=ref_n))
+            trajectory_check(f"longtail (d) train_audiooperator ({label}) at {ref_n} samples",
+                             run.losses, ref[key], tol.get(f"{key}_trajectory", tol["trajectory"]),
+                             falls(ref[key]))
+            del run
+
+        # (e) the A4 layers and the multiresolution shells, card against CPU in float64
+        layers_check(dev)
+
+        launches = dict(kernels.LAUNCHES)
+        if any(launches.values()):
+            fail(f"longtail phase: launches {launches}, expected none")
+        print(f"longtail launches of the six kernels {launches} (none expected); the phase took "
+              f"{time.perf_counter() - t_phase:.1f} s (host clock)")
+    finally:
+        tmp.cleanup()
+
+
+def rise_over(losses, control) -> float:
+    """How far a run's loss stands above a frozen control's on the same
+    batches: the median over the last half of the steps of loss / control,
+    less 1 (0 for the control itself)."""
+    ratio = np.asarray(losses, np.float64) / np.asarray(control, np.float64)
+    return float(np.median(ratio[len(ratio) // 2:]) - 1.0)
+
+
+def falls(reference) -> bool:
+    """Whether mptpu's trajectory falls: the median of its last quarter below
+    the median of its first."""
+    m = np.asarray(reference, np.float64)
+    q = max(3, len(m) // 4)
+    return bool(np.median(m[-q:]) < np.median(m[:q]))
+
+
+def layers_check(dev):
+    """Phase 11(e): each A4 layer, the five custom gradients, the phase codec
+    and the multiresolution shells at a small size, forward and the
+    gradient of ``sum(out * cotangent)`` by the parameters and inputs, on
+    the card against the CPU in float64 (within LONGTAIL_TOL["layers"] of
+    each tensor's largest; a tensor that is 0 in exact arithmetic below
+    1e-12 of the case's largest)."""
+    import torch
+
+    from mptpu_torch import nn as tnn
+    from mptpu_torch.models import multiresolution as tmr
+    from mptpu_torch.ops import AudioCodec
+    from mptpu_torch.ops import custom_grads as cg
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, dtype=torch.float64)
+
+    cases = {}
+    ups = dict(latent_dim=6, channels=4, start_size=4, end_size=32, out_channels=2)
+    for mode in ("nearest", "linear", "learned", "fft"):
+        cases[f"ConvUpsample {mode}"] = (lambda d, mode=mode: tnn.ConvUpsample(
+            **ups, mode=mode, device=d), [r(3, 6)], {})
+    cases["ConvUpsample batch_norm, train"] = (lambda d: tnn.ConvUpsample(
+        **ups, mode="learned", batch_norm=True, device=d), [r(3, 6)], dict(train=True))
+    cases["ConvUpsample layer_norm"] = (lambda d: tnn.ConvUpsample(
+        **ups, mode="nearest", layer_norm=True, device=d), [r(3, 6)], {})
+    cases["UNet, train"] = (lambda d: tnn.UNet(6, out_channels=5, device=d), [r(2, 6, 128)],
+                            dict(train=True))
+    cases["UNet discriminator"] = (lambda d: tnn.UNet(6, is_disc=True, device=d),
+                                   [r(2, 6, 128)], {})
+    cases["DownsamplingDiscriminator"] = (lambda d: tnn.DownsamplingDiscriminator(
+        64, 32, 1024, 8, device=d), [r(2, 1, 1024)], {})
+    for pad in (None, "only-past", "only-future"):
+        cases[f"DilatedStack {pad}"] = (lambda d, pad=pad: tnn.DilatedStack(
+            6, (1, 3, 9), pad, device=d), [r(2, 6, 40)], {})
+    cases["MixerStack"] = (lambda d: tnn.MixerStack(5, 8, 12, 2, 3, device=d), [r(2, 12, 5)], {})
+    cases["Transformer"] = (lambda d: tnn.Transformer(16, 3, device=d), [r(2, 8, 16)], {})
+    cases["MetaFormer"] = (lambda d: tnn.MetaFormer(8, 2, device=d), [r(2, 9, 8)], {})
+    cases["AntiCausalAnalysis do_norm, train"] = (lambda d: tnn.AntiCausalAnalysis(
+        5, 6, 2, (1, 2, 4), do_norm=True, device=d), [r(2, 5, 32)], dict(train=True))
+    cases["DecoderShell"] = (lambda d: tmr.DecoderShell(8, (512, 1024), 1024, 16, device=d),
+                             [r(2, 16)], {})
+    feats = {512: r(2, 64 * 3 * 6), 1024: r(2, 64 * 3 * 4)}
+    cases["EncoderShell"] = (lambda d: _DictInput(tmr.EncoderShell(8, {512: 6, 1024: 4}, 16,
+                                                                   device=d)),
+                             [feats[512], feats[1024]], {})
+    def case_err(name, labels, card, host):
+        """The largest error over a case's tensors (each of its largest), a
+        tensor that is 0 in exact arithmetic (a bias before a batch norm in
+        training: float64 noise on both sides) held below 1e-12 of the
+        case's largest tensor instead; the tensors over the gate printed."""
+        floor = 1e-12 * max(float(b.abs().max()) for b in host)
+        worst, detail = 0.0, []
+        for label, a, b in zip(labels, card, host):
+            top = max(float(a.abs().max()), float(b.abs().max()))
+            e = share_err(a, b) if top >= floor else 0.0
+            worst = max(worst, e)
+            if e > LONGTAIL_TOL["layers"]:
+                detail.append(f"{label} {e:.2e} (largest {top:.3e})")
+        if detail:
+            print(f"longtail (e) {name}, tensors over the gate: " + "; ".join(detail))
+        return worst
+
+    errs = {}
+    for name, (build, inputs, kw) in cases.items():
+        state = build(cpu).state_dict()
+        outs = {}
+        for d in (dev, cpu):
+            m = build(d)
+            m.load_state_dict(state)
+            m.double()
+            xs = [x.to(d).requires_grad_() for x in inputs]
+            out = m(*xs, **kw)
+            cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(1),
+                              dtype=torch.float64).to(d)
+            names, params = zip(*m.named_parameters())
+            grads = torch.autograd.grad(torch.sum(out * cot), list(params) + xs,
+                                        allow_unused=True, materialize_grads=True)
+            outs[d.type] = [out.detach()] + list(grads)
+        labels = ["output"] + [f"{n} gradient" for n in names] + [
+            f"input {i} gradient" for i in range(len(inputs))]
+        errs[name] = case_err(name, labels, outs[dev.type], outs["cpu"])
+    # the phase codec's round trip and the five custom gradients
+    audio = r(2, 4096)
+    codec_out = {}
+    for d in (dev, cpu):
+        codec = AudioCodec(512, 256, device=d)
+        codec.freqs = codec.freqs.double()
+        codec_out[d.type] = codec.to_time_domain(codec.to_frequency_domain(audio.to(d)))
+    errs["AudioCodec round trip"] = share_err(codec_out[dev.type], codec_out["cpu"])
+    clips, pos, tgt = r(2, 3, 64), torch.rand(2, 3, generator=gen, dtype=torch.float64), r(2, 1, 64)
+    palette, soft = r(64), torch.rand(20, generator=gen, dtype=torch.float64) * 2 - 1
+    ops = {
+        "position_render": (lambda c, p: cg.position_render(p, c, 64), [clips, pos * 0.9]),
+        "scalar_position": (lambda p: cg.scalar_position(p, 64), [pos]),
+        "differentiable_fft_shift": (lambda c, p: cg.differentiable_fft_shift(c, p[..., None]),
+                                     [clips, pos]),
+        "schedule_atoms": (lambda c, p: cg.schedule_atoms(c, p, tgt.to(c.device)), [clips, pos]),
+        "diff_index": (lambda pal, s: cg.diff_index(pal, s), [palette, soft]),
+    }
+    for name, (fn, inputs) in ops.items():
+        outs = {}
+        for d in (dev, cpu):
+            xs = [x.to(d).requires_grad_() for x in inputs]
+            out = fn(*xs)
+            cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(2),
+                              dtype=torch.float64).to(d)
+            grads = torch.autograd.grad(out, xs, cot, allow_unused=True, materialize_grads=True)
+            outs[d.type] = [out.detach()] + list(grads)
+        labels = ["output"] + [f"input {i} gradient" for i in range(len(inputs))]
+        errs[f"{name} (custom gradient)"] = case_err(name, labels, outs[dev.type], outs["cpu"])
+    worst = max(errs.values())
+    print("longtail (e) the A4 layers, the custom gradients, the phase codec and the "
+          "multiresolution shells, card against CPU in float64, forward and gradients, max abs "
+          "err over the largest: " + "; ".join(f"{k} {v:.1e}" for k, v in errs.items()))
+    if worst > LONGTAIL_TOL["layers"]:
+        fail(f"longtail: a layer is {worst:.2e} off the CPU in float64 "
+             f"({max(errs, key=errs.get)})")
+
+
+class _DictInput:
+    """An ``EncoderShell`` called with its two bands' features as
+    arguments (so that the check above can move them and take their
+    gradients)."""
+
+    def __init__(self, shell):
+        self.shell = shell
+
+    def __getattr__(self, name):
+        return getattr(self.shell, name)
+
+    def __call__(self, a, b):
+        return self.shell({512: a, 1024: b})
+
+
 def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM, ssm=SSM,
-        siam_train=SIAM_TRAIN, models=MODELS):
-    """Phases 2-10 on device ``dev``; returns the kernels' records."""
+        siam_train=SIAM_TRAIN, models=MODELS, longtail=LONGTAIL):
+    """Phases 2-11 on device ``dev``; returns the kernels' records."""
     import torch
     import torch.nn.functional as F
 
@@ -3166,6 +3767,8 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM, ssm=SSM,
     siam_train_phase(dev, siam_train, sync)
 
     models_phase(dev, models, sync, records)
+
+    longtail_phase(dev, longtail, sync)
 
     # ---- phase 5: per-kernel times
     fm, bm, res = encode_state(sig_b, d2_b, geom)

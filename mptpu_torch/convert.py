@@ -3,9 +3,10 @@
 Anything ``np.asarray`` accepts (a JAX array, a numpy array, a nested
 list) converts. For the matching-pursuit encoder the dictionary is the
 whole model; for the multiband codec it is one dictionary per band; the
-sparsity modules and the splat overfit take a flax parameter tree, whose
-``Dense`` layers and parameters the port's modules hold under the same
-names.
+sparsity modules, the splat overfit and the models after them take a flax
+parameter tree, whose ``Dense`` layers and parameters the port's modules
+hold under the same names; a tree's ``batch_stats`` go into the port's
+``BatchNorm`` buffers.
 """
 
 from __future__ import annotations
@@ -137,16 +138,6 @@ def _copy_tree(module: torch.nn.Module, tree, path: str) -> None:
             raise ValueError(f"{where}: an array against a module")
 
 
-def sparsity_from_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
-    """Copy the flax parameters of ``mptpu``'s ``ElementwiseSparsity`` or
-    ``VectorwiseSparsity`` (``module.init``'s ``{"params": {"Dense_i":
-    {"kernel", "bias"}}}``, or its ``"params"`` entry) into the port's
-    module of the same shape, in place, and return it. A flax ``kernel`` is
-    (in, out) and an ``nn.Linear`` weight (out, in): it is transposed."""
-    _copy_tree(module, variables.get("params", variables), "")
-    return module
-
-
 # the splat model's top-level flax modules and the port's attributes for them
 SPLAT_CHILDREN = {"MultiHeadTransform_0": "transform", "SplattingEventGenerator_0": "decoder"}
 
@@ -211,15 +202,6 @@ def songsplat_to_flax(module: torch.nn.Module) -> dict:
     return {"params": {back.get(k, k): v for k, v in _flax_tree(module).items()}}
 
 
-def mp_model_from_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
-    """Copy the flax tree of ``mptpu``'s learned-atom ``MatchingPursuit``
-    (``{"params": {"atoms": (1, n_atoms, atom_samples)}}`` or its
-    ``"params"`` entry) into the port's module, in place, and return it.
-    Raises on any other name or shape."""
-    _copy_tree(module, variables.get("params", variables), "")
-    return module
-
-
 def _flax_tree(module: torch.nn.Module) -> dict:
     """The flax parameter tree of ``module`` as float32 numpy, the inverse
     of ``_copy_tree``: an ``nn.Linear`` as a ``Dense`` (its weight
@@ -256,15 +238,6 @@ def flax_paths(module: torch.nn.Module, prefix: tuple = ()) -> dict:
     return out
 
 
-def siam_to_flax(module: torch.nn.Module) -> dict:
-    """The port's ``SIAMModel`` as ``mptpu``'s flax variables ``{"params":
-    tree}`` of float32 numpy, the exact inverse of :func:`siam_from_flax`:
-    a checkpoint whose params are this loads in ``mptpu``'s
-    ``load_checkpoint`` and ``SIAMModel.apply`` and in the port's
-    ``SIAMCodec``."""
-    return {"params": _flax_tree(module)}
-
-
 def _rnn_names(module: torch.nn.Module, tree):
     """``tree`` with every ``InstrumentModel``'s ``w_ih`` and ``w_hh`` (flax's
     (in, out) matrices) moved into ``{"rnn": {"weight_ih_l0",
@@ -293,3 +266,71 @@ def ssm_from_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
     layers). Raises on any name or shape that does not match."""
     _copy_tree(module, _rnn_names(module, variables.get("params", variables)), "")
     return module
+
+
+def _batch_norms(module: torch.nn.Module) -> dict:
+    """{flax path: BatchNorm} of every flax-form ``BatchNorm`` in ``module``."""
+    from .nn.layers import BatchNorm
+
+    return {tuple(name.split(".")) if name else (): m for name, m in module.named_modules()
+            if isinstance(m, BatchNorm)}
+
+
+def _flatten(tree, prefix: tuple = ()) -> dict:
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flatten(v, prefix + (k,)))
+    return out
+
+
+def module_from_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
+    """Copy flax variables into the port's module of the same
+    configuration, in place, and return it: ``variables["params"]`` (or
+    ``variables`` itself when it has no ``"params"``) by name
+    (a flax ``Dense`` into an ``nn.Linear``, its kernel transposed; a
+    ``Conv`` into an ``nn.Conv1d``), and ``variables["batch_stats"]``
+    (each ``BatchNorm``'s ``mean`` and ``var``) into the module's
+    ``BatchNorm`` buffers, which must be exactly those the tree names.
+    Serves every module family whose children carry flax's names: the
+    ``nn`` stacks (``DilatedStack``, ``MixerStack``, ``Transformer``,
+    ``MetaFormer``), ``UNet`` and ``DownsamplingDiscriminator``,
+    ``ConvUpsample``, ``AntiCausalAnalysis`` with ``do_norm``,
+    ``FuncSong``, ``AudioOperator``, ``TexturalModel``, ``RoomModel`` and
+    the multiresolution shells. Raises on any name or shape that does not
+    match."""
+    _copy_tree(module, variables.get("params", variables), "")
+    stats = _flatten(variables.get("batch_stats", {}))
+    norms = _batch_norms(module)
+    want = {path + (leaf,) for path in norms for leaf in ("mean", "var")}
+    if set(stats) != want:
+        raise ValueError(f"batch_stats {sorted(stats)} against the module's BatchNorm buffers "
+                         f"{sorted(want)}")
+    with torch.no_grad():
+        for path, arr in stats.items():
+            buf = getattr(norms[path[:-1]], path[-1])
+            arr = np.asarray(arr, dtype=np.float32)
+            if arr.shape != tuple(buf.shape):
+                raise ValueError(f"{'/'.join(path)}: shape {arr.shape} against "
+                                 f"{tuple(buf.shape)}")
+            buf.copy_(torch.from_numpy(arr.copy()))
+    return module
+
+
+def module_to_flax(module: torch.nn.Module) -> dict:
+    """The port's module as flax variables of float32 numpy, the inverse of
+    :func:`module_from_flax`: ``{"params": tree}``, with ``"batch_stats"``
+    where the module holds a ``BatchNorm``."""
+    out = {"params": _flax_tree(module)}
+    norms = _batch_norms(module)
+    if norms:
+        stats = {}
+        for path, bn in norms.items():
+            node = stats
+            for k in path:
+                node = node.setdefault(k, {})
+            node.update(mean=bn.mean.detach().cpu().numpy().copy(),
+                        var=bn.var.detach().cpu().numpy().copy())
+        out["batch_stats"] = stats
+    return out

@@ -14,7 +14,9 @@ from .schedule import (
 from .splat import SplattingEventGenerator
 from .ssm import SSM, HyperNetworkLayer, StateSpaceModelEventGenerator, ssm_scan, state_space_model
 from .ssm_complex import ComplexSSM, CompressionModel, param_count
-from .transfer import damped_harmonic_oscillator, gaussian_bandpass_filtered, make_waves
+from .roomsim import RoomModel, overfit_room, roomsim, simulate_room
+from .transfer import (damped_harmonic_oscillator, fft_convolve_correlation,
+                       gaussian_bandpass_filtered, make_waves, make_waves_vectorized)
 
 __all__ = [
     "EventGenerator",
@@ -41,4 +43,10 @@ __all__ = [
     "damped_harmonic_oscillator",
     "gaussian_bandpass_filtered",
     "make_waves",
+    "make_waves_vectorized",
+    "fft_convolve_correlation",
+    "RoomModel",
+    "roomsim",
+    "simulate_room",
+    "overfit_room",
 ]

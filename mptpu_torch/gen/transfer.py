@@ -1,10 +1,13 @@
-"""Waveform tables, the damped harmonic oscillator and Gaussian band-pass
-filtering (counterpart of ``make_waves``, ``damped_harmonic_oscillator``
-and ``gaussian_bandpass_filtered`` in ``mptpu/gen/transfer.py``; the rest
-of that module is not ported yet)."""
+"""Waveform tables, the damped harmonic oscillator, Gaussian band-pass
+filtering and the N-argument FFT convolution with its correlation mode
+(counterpart of ``make_waves``, ``make_waves_vectorized``,
+``damped_harmonic_oscillator``, ``gaussian_bandpass_filtered`` and
+``fft_convolve_correlation`` in ``mptpu/gen/transfer.py``; the resonance
+banks of that module are not ported yet)."""
 
 from __future__ import annotations
 
+from functools import reduce
 from typing import List
 
 import numpy as np
@@ -12,6 +15,7 @@ import torch
 from scipy.signal import sawtooth, square
 
 from ..device import default_device
+from ..ops.fft import real_ends
 from ..ops.kinks import clip
 from ..ops.pdf import pdf2
 
@@ -31,6 +35,30 @@ def make_waves(n_samples: int, f0s: List[float], samplerate: int, device=None) -
         sines.append(np.sin(radians)[None, :])
     waves = np.concatenate(sawtooths + squares + triangles + sines, axis=0)
     return torch.from_numpy(waves.astype(np.float32)).to(default_device(device))
+
+
+def make_waves_vectorized(n_samples: int, f0s, samplerate: int, device=None) -> torch.Tensor:
+    """The table of :func:`make_waves` from one grid of phases for all f0s
+    (``mptpu``'s vectorised form; equal to the loop form within its own
+    tolerance, not bit for bit)."""
+    f0s = np.asarray(f0s, dtype=np.float64) / (samplerate // 2)
+    radians = (f0s * np.pi)[:, None] * np.linspace(0, n_samples, n_samples)[None, :]
+    waves = np.concatenate([sawtooth(radians), square(radians), sawtooth(radians, 0.5),
+                            np.sin(radians)], axis=0)
+    return torch.from_numpy(waves.astype(np.float32)).to(default_device(device))
+
+
+def fft_convolve_correlation(*args: torch.Tensor, correlation: bool = False) -> torch.Tensor:
+    """N-argument FFT convolution: each input zero-padded to twice its
+    length, the spectra multiplied, the product cut to the first input's
+    length; ``correlation`` conjugates the second spectrum, a
+    cross-correlation with it. Leading axes broadcast."""
+    n_samples = args[0].shape[-1]
+    specs = [torch.fft.rfft(x, n=2 * x.shape[-1], dim=-1) for x in args]
+    if correlation:
+        specs[1] = torch.conj(specs[1])
+    spec = reduce(lambda a, c: a * c, specs[1:], specs[0])
+    return torch.fft.irfft(real_ends(spec), n=2 * n_samples, dim=-1)[..., :n_samples]
 
 
 def gaussian_bandpass_filtered(means: torch.Tensor, stds: torch.Tensor, signals: torch.Tensor,

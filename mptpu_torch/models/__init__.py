@@ -1,10 +1,15 @@
 """Model assemblies of the port (counterpart of ``mptpu.models`` and of the
 trainers in ``scripts/``; only the ported names)."""
 
+from .audiooperator import (AudioOperator, band_pos_encode, envelope_loss,
+                            generate_training_batch, train_audiooperator,
+                            training_batch_from_draws)
+from .funcsong import FuncSong, count_parameters, song_pos_encoding, train_funcsong
 from .inference import SIAMCodec, SIAMEncoding, quantize_events
 from .instrument import (Note, PlayableInstrument, build_instrument, damped_sequential,
                          demo_phrase, repl)
 from .mp_model import MatchingPursuit
+from .multiresolution import BandEncoder, ConvBandDecoder, DecoderShell, EncoderShell
 from .pointcloud import (CanonicalOrdering, GraphEdgeEmbedding, flattened_upper_triangular,
                          pairwise_differences)
 from .search import (BruteForceSearch, EventEmbedder, IndexedCorpus, build_index, index_corpus,
@@ -17,6 +22,7 @@ from .siam_train import train_and_monitor
 from .songsplat import (SongSplatModel, SongSplatRun, render_song, songsplat_loss, songsplat_step,
                         train_songsplat)
 from .splat_overfit import OverfitHierarchicalEvents, SplatFit, overfit_splat, splat_loss_transform
+from .textural import Splitter, TexturalModel, confidence_loss, train_textural
 from .ssm_overfit import (InstrumentModel, OverfitControlPlane, SSMFit, generate_param_dict,
                           train_model_for_segment)
 
@@ -31,4 +37,8 @@ __all__ = ["OverfitHierarchicalEvents", "SplatFit", "overfit_splat", "splat_loss
            "flattened_upper_triangular", "pairwise_differences", "BruteForceSearch",
            "EventEmbedder", "IndexedCorpus", "build_index", "index_corpus", "k_nearest",
            "make_embedder", "SongSplatModel", "SongSplatRun", "render_song", "songsplat_loss",
-           "songsplat_step", "train_songsplat"]
+           "songsplat_step", "train_songsplat", "AudioOperator", "band_pos_encode",
+           "envelope_loss", "generate_training_batch", "train_audiooperator",
+           "training_batch_from_draws", "FuncSong", "count_parameters", "song_pos_encoding",
+           "train_funcsong", "BandEncoder", "ConvBandDecoder", "DecoderShell", "EncoderShell",
+           "Splitter", "TexturalModel", "confidence_loss", "train_textural"]

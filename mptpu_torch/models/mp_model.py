@@ -24,7 +24,7 @@ class MatchingPursuit(nn.Module):
     iteration removed, (batch, n_iterations, n_samples). ``atoms`` (1,
     n_atoms, atom_samples), flax's name and shape, starts uniform in
     [-0.01, 0.01) from ``generator`` (a CPU one, default seed 0); carry
-    ``mptpu``'s with ``convert.mp_model_from_flax``."""
+    ``mptpu``'s with ``convert.module_from_flax``."""
 
     def __init__(self, n_atoms: int, atom_samples: int, n_samples: int, n_iterations: int,
                  generator: torch.Generator | None = None, device=None):

@@ -277,9 +277,9 @@ class SIAMOverfitStep:
     def flax_variables(self, params: Optional[Sequence[torch.Tensor]] = None) -> dict:
         """``mptpu``'s flax variables of the model or of ``params``."""
         if params is None:
-            return convert.siam_to_flax(self.model)
+            return convert.module_to_flax(self.model)
         with parameters_swapped(self.model, params):
-            return convert.siam_to_flax(self.model)
+            return convert.module_to_flax(self.model)
 
 
 class _LaggedRead:

@@ -180,7 +180,7 @@ def _train(a: dict, dev: torch.device) -> SIAMTrainResult:
                 rand_audio, _, _ = random_seq(rvecs, generator=gen)
                 collection.log("random", torch.sum(rand_audio, dim=1)[0], kind="audio")
             if a["save_weights"] and i % ckpt.every == 0:
-                ckpt.maybe_save(i, convert.siam_to_flax(model), adam_state_tree(opt_state, names))
+                ckpt.maybe_save(i, convert.module_to_flax(model), adam_state_tree(opt_state, names))
         starts.append(time.perf_counter())
     finally:
         if server is not None:

@@ -7,8 +7,9 @@ channels). Children carry flax's names (``Conv_0``, ``AntiCausalConv_0``,
 ``AntiCausalBlock_0``, ``AntiCausalStack_0``, ``Dense_0``), so that
 ``convert.siam_from_flax`` finds every layer by its flax path. Weights
 are drawn uniform in +-``init_scale`` from a CPU ``torch.Generator``
-(default seed 0), biases zero. ``mptpu``'s ``do_norm`` (a BatchNorm after
-each block) is not ported: no model of the port turns it on.
+(default seed 0), biases zero. ``do_norm`` puts flax's ``BatchNorm``
+(``BatchNorm_0``, over the channels) after each block; ``train=True``
+normalises by the batch and moves its running statistics.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from torch import nn
 
 from ..device import default_device, no_tf32
 from ..ops.ste import straight_through
-from .init import uniform_init, uniform_linear
+from .init import uniform_linear
+from .layers import BatchNorm, flax_conv
 from .pos_encode import n_features_for_freq, pos_encoded
 
 
@@ -37,13 +39,8 @@ class AntiCausalConv(nn.Module):
         gen = generator or torch.Generator().manual_seed(0)
         pad = (kernel_size * dilation) // 2
         self.padding = (pad, 0) if reverse_causality else (0, pad)
-        self.Conv_0 = nn.Conv1d(in_channels, out_channels, kernel_size, dilation=dilation)
-        with torch.no_grad():
-            # flax draws the kernel (k, in, out); the weight is its (out, in, k)
-            kernel = uniform_init((kernel_size, in_channels, out_channels), init_scale, gen)
-            self.Conv_0.weight.copy_(kernel.permute(2, 1, 0))
-            self.Conv_0.bias.zero_()
-        self.Conv_0.to(default_device(device))
+        self.Conv_0 = flax_conv(in_channels, out_channels, kernel_size, init_scale, gen,
+                                dilation=dilation, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:   # (batch, channels, time)
         with no_tf32():
@@ -63,9 +60,10 @@ class AntiCausalBlock(nn.Module):
     def __init__(self, channels: int, kernel_size: int, dilation: int,
                  reverse_causality: bool = False, with_activation_norm: bool = False,
                  init_scale: float = 0.1, activation_clamp: float = 0.0,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None, do_norm: bool = False):
         super().__init__()
         gen = generator or torch.Generator().manual_seed(0)
+        self.do_norm = do_norm
         self.with_activation_norm = with_activation_norm
         self.activation_clamp = activation_clamp
         self.AntiCausalConv_0 = AntiCausalConv(channels, channels, kernel_size, dilation,
@@ -76,8 +74,10 @@ class AntiCausalBlock(nn.Module):
             dev = default_device(device)
             self.tanh_weight = nn.Parameter(torch.full((1,), 0.5, device=dev))
             self.sigmoid_weight = nn.Parameter(torch.full((1,), 0.5, device=dev))
+        if do_norm:
+            self.BatchNorm_0 = BatchNorm(channels, axis=1, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         conv = self.AntiCausalConv_0(x)
         gate = self.AntiCausalConv_1(x)
         if self.with_activation_norm:
@@ -88,7 +88,7 @@ class AntiCausalBlock(nn.Module):
         if self.activation_clamp:
             b = self.activation_clamp
             h = straight_through(torch.clamp(h, -b, b), h)
-        return h
+        return self.BatchNorm_0(h, train) if self.do_norm else h
 
 
 class AntiCausalStack(nn.Module):
@@ -98,20 +98,20 @@ class AntiCausalStack(nn.Module):
     def __init__(self, channels: int, kernel_size: int, dilations: Sequence[int],
                  reverse_causality: bool = False, with_activation_norm: bool = False,
                  init_scale: float = 0.1, activation_clamp: float = 0.0,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None, do_norm: bool = False):
         super().__init__()
         gen = generator or torch.Generator().manual_seed(0)
         self.n_blocks = len(dilations)
         for i, d in enumerate(dilations):
             self.add_module(f"AntiCausalBlock_{i}", AntiCausalBlock(
                 channels, kernel_size, d, reverse_causality, with_activation_norm, init_scale,
-                activation_clamp, gen, device))
+                activation_clamp, gen, device, do_norm))
         self.Dense_0 = uniform_linear(channels, channels, True, init_scale, gen, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:   # (batch, channels, time)
-        output = torch.zeros_like(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        output = torch.zeros_like(x)   # x: (batch, channels, time)
         for i in range(self.n_blocks):
-            x = getattr(self, f"AntiCausalBlock_{i}")(x)
+            x = getattr(self, f"AntiCausalBlock_{i}")(x, train)
             output = output + x
         with no_tf32():
             return self.Dense_0(output.transpose(1, 2)).transpose(1, 2)
@@ -126,7 +126,7 @@ class AntiCausalAnalysis(nn.Module):
                  dilations: Sequence[int], pos_encodings: bool = False,
                  reverse_causality: bool = False, with_activation_norm: bool = False,
                  init_scale: float = 0.1, activation_clamp: float = 0.0,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None, do_norm: bool = False):
         super().__init__()
         gen = generator or torch.Generator().manual_seed(0)
         self.pos_encodings = pos_encodings
@@ -136,12 +136,12 @@ class AntiCausalAnalysis(nn.Module):
                                           gen, device)
         self.AntiCausalStack_0 = AntiCausalStack(
             channels, kernel_size, dilations, reverse_causality, with_activation_norm, init_scale,
-            activation_clamp, gen, device)
+            activation_clamp, gen, device, do_norm)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         batch, _, time = x.shape
         with no_tf32():
             h = self.Dense_0(x.transpose(1, 2))   # (batch, time, channels)
             if self.pos_encodings:
                 h = h + self.Dense_1(pos_encoded(batch, time, n_freqs=16, device=x.device))
-        return self.AntiCausalStack_0(h.transpose(1, 2))
+        return self.AntiCausalStack_0(h.transpose(1, 2), train)

@@ -1,5 +1,4 @@
-"""L0 ops of the sparse layer (counterpart of ``mptpu.ops``; only the
-ported names)."""
+"""L0 ops (counterpart of ``mptpu.ops``; only the ported names)."""
 
 from .fft import (
     n_fft_coeffs,
@@ -12,6 +11,7 @@ from .fft import (
     fft_convolve,
     simple_fft_convolve,
     fft_shift,
+    randomize_phase,
 )
 from .correlation import mp_correlate, torch_style_conv
 from .norms import unit_norm, max_norm, limit_norm, example_norm
@@ -41,6 +41,23 @@ from .upsample import (
 )
 from .stft import stft, log_stft, stft_relative_phase, short_time_transform
 from .overlap_add import overlap_add
+from .features import amplitude_envelope, mfcc, chroma, chroma_basis
+from .phase import (
+    windowed_audio,
+    stft_complex,
+    istft,
+    rfft_freqs,
+    mag_phase_decomposition,
+    mag_phase_recomposition,
+    AudioCodec,
+)
+from .custom_grads import (
+    position_render,
+    scalar_position,
+    differentiable_fft_shift,
+    schedule_atoms,
+    diff_index,
+)
 
 __all__ = [
     "n_fft_coeffs",
@@ -53,6 +70,7 @@ __all__ = [
     "fft_convolve",
     "simple_fft_convolve",
     "fft_shift",
+    "randomize_phase",
     "mp_correlate",
     "torch_style_conv",
     "unit_norm",
@@ -86,4 +104,20 @@ __all__ = [
     "stft_relative_phase",
     "short_time_transform",
     "overlap_add",
+    "amplitude_envelope",
+    "mfcc",
+    "chroma",
+    "chroma_basis",
+    "windowed_audio",
+    "stft_complex",
+    "istft",
+    "rfft_freqs",
+    "mag_phase_decomposition",
+    "mag_phase_recomposition",
+    "AudioCodec",
+    "position_render",
+    "scalar_position",
+    "differentiable_fft_shift",
+    "schedule_atoms",
+    "diff_index",
 ]

@@ -1,6 +1,5 @@
 """FFT convolution and shift primitives and complex construction
-(counterpart of ``mptpu/ops/fft.py``; ``randomize_phase`` is not ported
-yet).
+and phase randomisation (counterpart of ``mptpu/ops/fft.py``).
 
 Real FFTs over the last axis; ``norm="ortho"`` is passed straight to
 ``torch.fft``.
@@ -87,3 +86,20 @@ def fft_shift(a: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     theta = -(k * 2.0 * math.pi / n_coeffs) * shift_samples
     samples = torch.fft.irfft(real_ends(spec * cexp(theta)), n=padded_len, dim=-1)
     return samples[..., :n_samples]
+
+
+def randomize_phase(x: torch.Tensor, generator: torch.Generator | None = None,
+                    phases: torch.Tensor | None = None) -> torch.Tensor:
+    """``x`` with its rFFT's magnitudes kept and its phases replaced by the
+    running sum over axis 1 of uniform draws in [-pi, pi), wrapped back into
+    [-pi, pi). ``phases`` are those draws (the spectrum's shape), else they
+    come from ``generator`` on its device (``x``'s device without one)."""
+    spec = torch.fft.rfft(x, dim=-1)
+    mags = torch.abs(spec)
+    if phases is None:
+        dev = generator.device if generator is not None else x.device
+        phases = (torch.rand(spec.shape, generator=generator, device=dev, dtype=x.dtype)
+                  * (2 * math.pi) - math.pi).to(x.device)
+    imag = torch.cumsum(phases, dim=1)
+    imag = torch.remainder(imag + math.pi, 2 * math.pi) - math.pi
+    return torch.fft.irfft(real_ends(mags * cexp(imag)), n=x.shape[-1], dim=-1)

@@ -29,19 +29,21 @@ def hamming_window(size: int, periodic: bool = False, dtype=torch.float32, devic
     return torch.from_numpy(w).to(default_device(device), dtype)
 
 
-def linspace(start: float, stop: float, num: int, device=None) -> torch.Tensor:
-    """``jnp.linspace(start, stop, num)`` in float32 by its own formula:
+def linspace(start: float, stop: float, num: int, device=None,
+             dtype=torch.float32) -> torch.Tensor:
+    """``jnp.linspace(start, stop, num)`` in ``dtype`` (float32 unless
+    asked) by its own formula:
     ``start * (1 - s) + stop * s`` with ``s = i * (1 / (num - 1))``, and
     ``stop`` exactly at the end. ``torch.linspace`` computes otherwise and
     differs from it in the last place at most sizes; XLA may fuse the
     arithmetic, so a value may still differ from ``jnp``'s by one place
     (not on a grid from 0 to 1)."""
     dev = default_device(device)
-    first = torch.tensor([start], dtype=torch.float32, device=dev)
+    first = torch.tensor([start], dtype=dtype, device=dev)
     if num == 1:
         return first
     div = num - 1
-    step = torch.arange(div, dtype=torch.float32, device=dev) * (
-        torch.tensor(1.0, dtype=torch.float32) / div).to(dev)
-    end = torch.tensor([stop], dtype=torch.float32, device=dev)
+    step = torch.arange(div, dtype=dtype, device=dev) * (
+        torch.tensor(1.0, dtype=dtype) / div).to(dev)
+    end = torch.tensor([stop], dtype=dtype, device=dev)
     return torch.cat([first * (1 - step) + end * step, end])

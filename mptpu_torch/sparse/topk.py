@@ -173,7 +173,7 @@ def to_key_points(x: torch.Tensor, n_to_keep: int = 64) -> torch.Tensor:
 class ElementwiseSparsity(nn.Module):
     """Expand -> top-k -> contract. ``Dense_0`` and ``Dense_1`` keep the
     flax module's parameter names, so that ``mptpu_torch.convert.
-    sparsity_from_flax`` copies its parameters by name."""
+    module_from_flax`` copies its parameters by name."""
 
     def __init__(self, model_dim: int, high_dim: int = 2048, keep: int = 64,
                  use_softmax: bool = False, device=None):

@@ -105,7 +105,7 @@ def pair():
     """The port's seeded tiny model and its flax tree; a fresh instrument
     of each package over them (the port's codec fed mptpu's noise)."""
     tm = ts.SIAMModel(**TINY, generator=torch.Generator().manual_seed(3), device="cpu")
-    tree = convert.siam_to_flax(tm)
+    tree = convert.module_to_flax(tm)
 
     def make(noise_seed=0):
         j = jinst.PlayableInstrument(jinf.SIAMCodec(model=js.SIAMModel(**TINY),
@@ -249,7 +249,7 @@ def test_build_instrument_from_a_pkl_a_directory_and_sizes(pair, tmp_path):
     tckpt.save_checkpoint(path, tree, None, step=7)
     inst = tinst.build_instrument(path, tiny=True, device="cpu")
     j = SCRIPT.build(path, True)
-    got, want = convert.siam_to_flax(inst.model)["params"], j.codec.params["params"]
+    got, want = convert.module_to_flax(inst.model)["params"], j.codec.params["params"]
     assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(want)
     for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)):
         np.testing.assert_array_equal(a, np.asarray(b))

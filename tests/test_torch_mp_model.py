@@ -1,7 +1,7 @@
 """The learned-atom matching pursuit (``mptpu/models/mp_model.py``) in the
 port against ``mptpu`` on JAX-CPU, at ``tests/test_models_extra.py``'s
 shapes (8 atoms x 32 taps, 512 samples, 3 iterations), ``mptpu``'s
-initial atoms carried by ``convert.mp_model_from_flax``: the forward, the
+initial atoms carried by ``convert.module_from_flax``: the forward, the
 value and gradient of ``iterative_loss`` over ``stft(x, 128, 64,
 pad=True)``, and 8 Adam steps (lr 1e-2) against optax's trajectory.
 
@@ -52,7 +52,7 @@ def carried():
     jm = JMP(**SHAPE)
     audio = np.array(jax.random.normal(jax.random.PRNGKey(1), (1, 1, 512)) * 0.1)
     params = jm.init(KEY, jnp.asarray(audio))
-    tm = convert.mp_model_from_flax(TMP(*SHAPE.values(), device="cpu"), params)
+    tm = convert.module_from_flax(TMP(*SHAPE.values(), device="cpu"), params)
     return jm, params, tm, audio
 
 
@@ -84,7 +84,7 @@ def test_parameters_carry_and_refuse_a_bad_shape(carried):
     _, params, tm, _ = carried
     np.testing.assert_array_equal(tm.atoms.detach().numpy(), np.asarray(params["params"]["atoms"]))
     with pytest.raises(ValueError, match="atoms"):
-        convert.mp_model_from_flax(TMP(8, 16, 512, 3, device="cpu"), params)
+        convert.module_from_flax(TMP(8, 16, 512, 3, device="cpu"), params)
 
 
 def test_forward(carried):
@@ -121,7 +121,7 @@ def test_eight_adam_steps_against_optax(carried):
     jitted steps) against torch.optim.Adam on the port: each step's loss
     and the atoms after it; the loss falls."""
     jm, params, _, audio = carried
-    tm = convert.mp_model_from_flax(TMP(*SHAPE.values(), device="cpu"), params)
+    tm = convert.module_from_flax(TMP(*SHAPE.values(), device="cpu"), params)
 
     def j_loss(p):
         return j_iterative_loss(jnp.asarray(audio), jm.apply(p, jnp.asarray(audio)), j_transform)

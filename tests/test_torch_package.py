@@ -184,7 +184,7 @@ def test_sparsity_from_flax_round_trip(kind):
         jm = jsp.VectorwiseSparsity(model_dim=8, keep=3, channels_last=False)
         tm = tsp.VectorwiseSparsity(model_dim=8, keep=3, channels_last=False, device="cpu")
     variables = jm.init(jax.random.PRNGKey(1), jnp.asarray(x))
-    assert convert.sparsity_from_flax(tm, variables) is tm
+    assert convert.module_from_flax(tm, variables) is tm
     for name, leaf in variables["params"].items():
         np.testing.assert_array_equal(getattr(tm, name).weight.detach().numpy(),
                                       np.asarray(leaf["kernel"]).T)
@@ -198,7 +198,7 @@ def test_sparsity_from_flax_round_trip(kind):
         np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
 
     with pytest.raises(ValueError):
-        convert.sparsity_from_flax(tm, {"Dense_5": variables["params"]["Dense_0"]})
+        convert.module_from_flax(tm, {"Dense_5": variables["params"]["Dense_0"]})
     bad = {k: {"kernel": np.zeros((3, 3)), "bias": np.zeros(3)} for k in variables["params"]}
     with pytest.raises(ValueError):
-        convert.sparsity_from_flax(tm, {"params": bad})
+        convert.module_from_flax(tm, {"params": bad})

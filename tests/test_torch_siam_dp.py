@@ -88,9 +88,9 @@ def port_steps(mesh, noise):
 
     def tree(tensors):
         with parameters_swapped(model, tensors):
-            return convert.siam_to_flax(model)["params"]
+            return convert.module_to_flax(model)["params"]
 
-    return losses, convert.siam_to_flax(model)["params"], tree(state.mu), tree(state.nu), int(
+    return losses, convert.module_to_flax(model)["params"], tree(state.mu), tree(state.nu), int(
         state.count)
 
 
@@ -226,7 +226,7 @@ def test_against_mptpus_data_parallel_step(two_ranks):
     opt = optimizer(lr=LR, b1=0.9, b2=0.999)
     mesh = j_mesh(axis_sizes=(2,), axis_names=("data",), devices=jax.devices()[:2])
     step = j_dp_step(loss_fn, opt, mesh)
-    jp = jax.tree_util.tree_map(jnp.asarray, convert.siam_to_flax(port_model()))
+    jp = jax.tree_util.tree_map(jnp.asarray, convert.module_to_flax(port_model()))
     jo = opt.init(jp)
     jl = []
     for _ in range(STEPS):

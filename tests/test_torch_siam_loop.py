@@ -100,7 +100,7 @@ def runs(tmp_path_factory):
                          switch_bias_init=1.0, generator=torch.Generator().manual_seed(5),
                          device="cpu")
     init = root / "init.pkl"
-    tckpt.save_checkpoint(str(init), convert.siam_to_flax(model), None, 0)
+    tckpt.save_checkpoint(str(init), convert.module_to_flax(model), None, 0)
     saved = [(m, m.RELU_SELECTION_LEAK, m.RELU_SELECTION_FLOOR) for m in (jq, tq)]
     kept = jplatform.enable_compilation_cache
     jplatform.enable_compilation_cache = lambda *a, **k: None   # no cache outside the run
@@ -279,7 +279,7 @@ def test_grad_anatomy_names_every_leaf_as_mptpu_does(tmp_path):
                          n_events=E, transform_window_size=512, transform_step_size=256,
                          device="cpu")
     want = {jax.tree_util.keystr(k) for k, _ in
-            jax.tree_util.tree_leaves_with_path(convert.siam_to_flax(model))}
+            jax.tree_util.tree_leaves_with_path(convert.module_to_flax(model))}
     for ln in lines:
         assert set(ln["leaf_gnorms"]) == want
         assert all(np.isfinite(v) for v in ln["leaf_gnorms"].values())

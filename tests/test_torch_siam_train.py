@@ -8,8 +8,8 @@ clip, three train steps against a jitted transcription of the script's
 ``train_step``, the non-finite gate, ``StormGuard`` on every scenario of
 ``tests/test_storm_guard.py`` and on the trainer's non-rewinding loop
 index, ``Reservoir``, ``random_sequence``, the eval metrics and
-``siam_to_flax``. ``mptpu``'s parameters are the port's seeded ones,
-carried by ``convert.siam_to_flax``; its noise (event ``i`` draws from
+``module_to_flax``. ``mptpu``'s parameters are the port's seeded ones,
+carried by ``convert.module_to_flax``; its noise (event ``i`` draws from
 ``fold_in(PRNGKey(42), i)``) is fed to the port as tensors. Every JAX
 function is jitted.
 
@@ -134,7 +134,7 @@ def leaves(tree):
 def port_leaves(model, tensors):
     """``tensors`` (in the model's parameter order) as flax leaves."""
     with tso.parameters_swapped(model, list(tensors)):
-        return leaves(convert.siam_to_flax(model))
+        return leaves(convert.module_to_flax(model))
 
 
 def assert_leaves_close(got, want, tol=GRAD_TOL, what=""):
@@ -266,7 +266,7 @@ def test_value_and_grad_under_each_flag(flags):
     each leaf's gradient within 1e-4 of its largest."""
     tm = port_model(**FLAGS[flags])
     jm = js.SIAMModel(**dict(CFG, **FLAGS[flags]))
-    params = jax.tree_util.tree_map(jnp.asarray, convert.siam_to_flax(tm))
+    params = jax.tree_util.tree_map(jnp.asarray, convert.module_to_flax(tm))
     f_tgt, tgt, tge = inputs()
     (jl, (_, jsched)), jg = jax.jit(jax.value_and_grad(j_loss_fn(jm), has_aux=True))(
         params, KEY, jnp.float32(2000.0), f_tgt, tgt, tge)
@@ -447,7 +447,7 @@ def test_three_train_steps_against_the_scripts(case, jstep):
     kw = STEPS[case]
     step, opt = jstep
     tm = port_model()
-    params = jax.tree_util.tree_map(jnp.asarray, convert.siam_to_flax(tm))
+    params = jax.tree_util.tree_map(jnp.asarray, convert.module_to_flax(tm))
     f_tgt, tgt, tge = inputs()
     jp, jo, je = params, opt.init(params), params
     trainer = tso.SIAMOverfitStep(tm, tso.LossSettings(WINDOW, STEP, 1e-3, 10.0), lr=LR,
@@ -519,7 +519,7 @@ def test_the_gate_keeps_everything_on_a_non_finite_step(jstep):
     st, old = trainer.opt_state, before[1]
     assert torch.equal(st.count, old.count)
     assert all(torch.equal(a, b) for a, b in zip(st.mu + st.nu, old.mu + old.nu))
-    params = jax.tree_util.tree_map(jnp.asarray, convert.siam_to_flax(port_model()))
+    params = jax.tree_util.tree_map(jnp.asarray, convert.module_to_flax(port_model()))
     o = opt.init(params)
     jp, jo, _, _, _, _, jok, jtail = step(params, o, params, KEY, jnp.float32(np.nan),
                                           jnp.float32(1e3), jnp.float32(1.0), jnp.float32(1e30),
@@ -629,7 +629,7 @@ def test_random_sequence_with_mptpus_draws():
     equal, audio within 1e-4 of its largest."""
     tm = port_model()
     jm = js.SIAMModel(**CFG)
-    params = jax.tree_util.tree_map(jnp.asarray, convert.siam_to_flax(tm))
+    params = jax.tree_util.tree_map(jnp.asarray, convert.module_to_flax(tm))
     vecs = (0.1 * np.random.default_rng(4).standard_normal((1, E, 16))).astype(np.float32)
     key = jax.random.PRNGKey(9)
     audio, _, times = jax.jit(js.make_random_sequence_fn(jm))(params, vecs, key)
@@ -673,14 +673,14 @@ def test_eval_metrics():
 
 @pytest.mark.parametrize("flags", ["sw6", "skip_filter"])
 def test_siam_to_flax_inverts_siam_from_flax(flags):
-    """siam_from_flax(siam_to_flax(a)) gives a's parameters to another
-    model exactly, and siam_to_flax of that gives the tree back."""
+    """siam_from_flax(module_to_flax(a)) gives a's parameters to another
+    model exactly, and module_to_flax of that gives the tree back."""
     a, b = port_model(1, **FLAGS[flags]), port_model(2, **FLAGS[flags])
-    tree = convert.siam_to_flax(a)
+    tree = convert.module_to_flax(a)
     convert.siam_from_flax(b, tree)
     for (na, pa), (nb, pb) in zip(a.named_parameters(), b.named_parameters()):
         assert na == nb and torch.equal(pa, pb)
-    back = leaves(convert.siam_to_flax(b))
+    back = leaves(convert.module_to_flax(b))
     for k, v in leaves(tree).items():
         np.testing.assert_array_equal(back[k], v)
     paths = convert.flax_paths(a)

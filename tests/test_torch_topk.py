@@ -217,7 +217,7 @@ def test_elementwise_and_vectorwise_sparsity(kind):
     jm, tm = module_pair(kind)
     x = normal((1, 32, 8) if kind == "vectorwise_channels_last" else (1, 8, 32), 10)
     params = jm.init(KEY, jnp.asarray(x))
-    convert.sparsity_from_flax(tm, params)
+    convert.module_from_flax(tm, params)
     outs = assert_same(lambda v: jm.apply(params, v), tm, x)
     if kind.startswith("elementwise"):
         assert outs[0].shape == (1, 8, 32) and int(torch.count_nonzero(outs[1])) == 4
