@@ -9,7 +9,9 @@ full width, SIAM training (both trainers) at its full width, and the
 models on those layers: the whole-song splat trainer, the playable
 instrument, event search and the learned-atom MP; then the long-tail
 overfit models (room simulation, textural, functional song, audio
-operator) and the remaining layers.
+operator) and the remaining layers; then the perceptual stack, the
+remaining losses and the resonance chain with their three entry points
+(resonance overfit, phase invariance, texture synthesis).
 
     python3 chip_smoke.py
 
@@ -156,6 +158,22 @@ Phases, each printing lines (any failure exits non-zero):
    busy and idle share) and peak memory; the A4 layers, the five custom
    gradients, the phase codec and the multiresolution shells at small
    sizes, card against CPU in float64; no launch of the six kernels;
+12. (after phase 11, before phase 5's times) A5 and A6 at their scripts'
+   defaults, each held to ``mptpu``'s loss trajectory from the port's
+   seed-0 parameters or start and the same draws (``PERCEPTUAL_REFERENCE``,
+   from tests/reference/*_trajectory.py): ``overfit_resonance`` at 2^15
+   samples (34,090,383 parameters) on ``mptpu``'s impulse noise
+   (tests/reference/resonance_noise.npy), after one step on the card
+   against the CPU on ``get_one_audio_segment(2**15, seed=9)`` (loss; float64
+   loss and gradients); ``run_phaseinvariance`` at 2^17 samples, each of
+   its three transforms; ``synthesize_texture`` at 2^17 samples with the
+   texture features (one step card against CPU) and with the scattering
+   features (at 2^17 its first loss against the CPU's forward, one float32
+   step's gradient card against CPU and a fall; held to ``mptpu`` at
+   ``--tiny``); each with ms a step, a traced step
+   (launches, busy and idle share) and peak memory; the A5 modules that no
+   script reaches, card against CPU in float64; no launch of the six
+   kernels;
 5. each kernel's time beside its plain version's, its bound and, for the
    boundary kernel, one ``torch.matmul`` computing the same product; the two
    step kernels per step from a chain of launches, with and without
@@ -163,7 +181,7 @@ Phases, each printing lines (any failure exits non-zero):
    multiband band beside the whole-encode kernel doing the same steps in one
    launch; the two whole-encode kernels and the cluster step kernel by
    cluster size, with the clusters the card holds at once beside each;
-12. a ``kernels`` JSON line, then the result line
+13. a ``kernels`` JSON line, then the result line
     ``{"ok": true, "device": {...}}``.
 
 It needs CUDA and the ``mptpu_torch`` package beside it, and exits with
@@ -382,6 +400,88 @@ LONGTAIL_TOL = dict(room=1e-5, loss=1e-5, gradients64=1e-10, funcsong_loss=1e-2,
                     funcsong_gradients64=1e-3, trajectory=1e-4,
                     operator_random_trajectory=2e-2, funcsong_trajectory=0.15,
                     funcsong_rise=(0.25, 3.0), layers=1e-10)
+# phase 12, the perceptual stack, the remaining losses and the resonance chain (ROADMAP A5,
+# A6): mptpu's losses a step on JAX-CPU from the port's seed-0 parameters or start and the same
+# draws (python3 tests/reference/{resonance,phaseinvariance,texture}_trajectory.py): the
+# resonance overfit at its script's defaults (2^15 samples, step i's impulse noise
+# fold_in(PRNGKey(0), i)'s draw, kept in tests/reference/resonance_noise.npy), the three
+# phase-invariance transforms at 2^17 samples, the texture features at 2^17 samples and the
+# scattering features at --tiny (2^12 samples, 16 filters: at 2^17 their (64, 64, 2^17)
+# convolution and its backward take JAX on the CPU far longer than minutes); the resonance and
+# texture targets synthetic_audio(n, 22050, n_events=max(4, n / 22050 * 8), seed=9 and 5), since
+# the scripts' corpus segments depend on the order in which a machine lists the corpus
+PERCEPTUAL_REFERENCE = {
+    # mptpu's loss falls within these 30 steps (medians of the first and last 7: 5507.042 ->
+    # 5506.969), where the frozen seed-0 model reads 5507.071 to 5507.072 at every draw
+    "resonance": [5507.07, 5507.07, 5507.04, 5506.99, 5507.04, 5506.94, 5506.85, 5507.02, 5506.99,
+                  5507.04, 5507.05, 5507.02, 5507.0, 5507.05, 5507.05, 5507.06, 5507.04, 5507.05,
+                  5507.05, 5507.03, 5507.04, 5507.05, 5507.04, 5507.02, 5506.94, 5506.98, 5506.97,
+                  5507.0, 5506.65, 5506.79],
+    # each step's loss the float64 mean of mptpu's float32 squared differences (XLA's float32
+    # mean of the AIM's reads up to 1.8e-5 low; the step does not feel it)
+    "phase_mag_spec_512": [0.00467745, 0.0041565, 0.00368201, 0.00324891, 0.00285886, 0.00251158,
+                           0.00220532, 0.00193745, 0.00170487, 0.00150421, 0.00133197,
+                           0.00118465, 0.00105895, 0.000951805, 0.000860461, 0.000782451,
+                           0.000715617, 0.000658102, 0.000608324, 0.000564943],
+    "phase_mag_spec_2048": [0.00468009, 0.00416589, 0.00369954, 0.0032768, 0.00289912,
+                            0.00256539, 0.00227318, 0.00201917, 0.0017997, 0.00161109, 0.0014497,
+                            0.00131212, 0.00119517, 0.00109592, 0.00101174, 0.000940286,
+                            0.000879467, 0.00082745, 0.000782616, 0.000743619],
+    "phase_aim": [598.876, 506.165, 429.652, 370.754, 325.834, 291.047, 263.872, 242.316, 224.623,
+                  209.348, 195.599, 183.057, 171.66, 161.363, 152.09, 143.754, 136.314, 129.748,
+                  123.99, 118.916],
+    "texture_texture": [6992180000.0, 4658280000.0, 3206950000.0, 2313490000.0, 1761680000.0,
+                        1417010000.0, 1198570000.0, 1057510000.0, 964519000.0, 902080000.0,
+                        859600000.0, 829395000.0, 807068000.0, 789784000.0, 775881000.0,
+                        764392000.0, 754310000.0, 744959000.0, 735780000.0, 726539000.0],
+    "texture_scattering_tiny": [24010.7, 18597.7, 15205.9, 12707.5, 11297.7, 9970.94, 8877.75,
+                                8088.8, 7512.1, 7002.89, 6374.21, 5854.09, 5487.94, 5105.09,
+                                4858.9, 4540.31, 4337.54, 4164.8, 3985.22, 3758.6]}
+# the same at the rehearsal sizes (--tiny, --smoke)
+PERCEPTUAL_REFERENCE_SMALL = {
+    "resonance": [844.938, 844.937, 844.934, 844.93],
+    "phase_mag_spec_512": [0.00397862, 0.00350505, 0.00308877, 0.00272084],
+    "phase_mag_spec_2048": [0.00331602, 0.00288852, 0.00251818, 0.00219451],
+    "phase_aim": [202.198, 169.899, 145.13, 125.908],
+    "texture_texture_tiny": [2144160.0, 1369370.0, 901799.0, 623539.0],
+    "texture_scattering_tiny": [24010.7, 18597.7, 15205.9, 12707.5]}
+# phase 12 at the scripts' defaults: scripts/resonance_overfit.py (2^15 samples, 128 f0s, depth
+# 2, lr 1e-3), scripts/phaseinvariance.py (2^17 samples, lr 1e-2, three transforms),
+# scripts/texture.py (2^17 samples, 64 filters, lr 1e-3; the scattering features also at --tiny,
+# where mptpu's trajectory is), each for as many steps as mptpu's trajectory has
+PERCEPTUAL = dict(
+    resonance=dict(tiny=False, steps=30),
+    phase=dict(n_samples=2**17, steps=20),
+    texture=dict(tiny=False, steps=20),
+    scattering=dict(tiny=False, steps=20, reference_tiny=True),
+    reference=PERCEPTUAL_REFERENCE)
+PERCEPTUAL_SMALL = dict(
+    resonance=dict(tiny=True, steps=4),
+    phase=dict(n_samples=2**13, steps=4),
+    texture=dict(tiny=True, steps=4),
+    scattering=dict(tiny=True, steps=4),
+    reference=PERCEPTUAL_REFERENCE_SMALL)
+# phase 12's gates, each set from a CPU measurement before the first run on a card:
+# - one step card against CPU: the loss within 1e-5 of it; the float64 gradients (of each
+#   parameter's largest) and loss within 1e-10, as for the other models;
+# - a trajectory within 1e-5 of mptpu's largest loss (the port on the CPU from the same
+#   parameters and draws: resonance 8.0e-7 over 30 steps at 2^15, where a frozen model stands
+#   up to 7.6e-5 away, and the two CPU runs part from step 31 on, 4.9e-6 there and 6.9e-5 at
+#   step 56; texture 9.2e-8); the
+#   phase-invariance transforms within 3e-5 (the port read 2.7e-6, 2.6e-6 and 2.0e-6 at 2^17;
+#   a frozen start stands 0.88 away by step 20); the scattering features at --tiny within 1e-3:
+#   a near tie in max_norm's maximum sends the runs apart from step 5, and the port's float32
+#   and float64 runs both stand 2.0e-4 and 1.8e-4 from mptpu's float32 one by step 20 (a frozen
+#   start 0.84);
+# - the scattering features at 2^17, where mptpu has no trajectory: the first loss within 1e-5
+#   of the CPU's forward, a fall, and one float32 step's gradient card against CPU within 1e-4
+#   of its largest, the tests' float32 gradient tolerance (python3 tools/scattering_precision.py:
+#   the CPU's float32 gradient stands 3.7e-7, 7.5e-6 and 1.8e-7 from its float64 one at 2^12,
+#   2^13 and 2^14 samples, 64 filters; an abs kink's side flipped by rounding makes the 2^13
+#   outlier);
+# - the A5 modules, card against CPU in float64, of each tensor's largest
+PERCEPTUAL_TOL = dict(loss=1e-5, gradients64=1e-10, trajectory=1e-5, phase_trajectory=3e-5,
+                      scattering_trajectory=1e-3, scattering_gradients32=1e-4, modules=1e-10)
 # the probe's kinds: label -> (kind, programmatic)
 PROBE_KINDS = {"grid": ("grid", False), "grid chained": ("grid", True), "fori": ("fori", False)}
 HOLD_CYCLES = 20_000_000   # about 10 ms of device spinning ahead of a timed run
@@ -2897,6 +2997,63 @@ def one_step_both(build, loss_of, dev):
     return out
 
 
+def peak_reset(dev):
+    """Reset the card's peak-memory counter (nothing off a card)."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak_gib(dev) -> str:
+    """Peak memory since the last reset, as text ("not measured" off a card)."""
+    import torch
+
+    if dev.type != "cuda":
+        return "not measured (no card)"
+    return f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB"
+
+
+def host_step_ms(starts, t_end) -> float:
+    """ms a step by the host clock, after the first (warm-up) step."""
+    return 1e3 * (t_end - starts[1]) / (len(starts) - 1)
+
+
+def traced_step(label, fn, step_ms, dev, sync):
+    """One call of ``fn`` (a step) traced: its launches, its device-busy
+    time and idle share against ``step_ms``; off a card the step runs
+    untraced, so that a rehearsal reaches it."""
+    if dev.type != "cuda":
+        fn()
+        print(f"{label}: trace not measured (no card)")
+        return
+    traced = device_time_by_kernel(fn, sync)
+    print(f"{label}, one step traced: {traced[2]} kernel launches")
+    print(busy_line(f"{label}, traced", traced, step_ms))
+
+
+def card_against_cpu(label, runs, dev, loss_tol, grad_tol, loss_scale=None):
+    """Hold ``one_step_both``'s runs: the float32 loss within ``loss_tol``
+    of the CPU's (of ``loss_scale``, the magnitude it is held against where
+    it is a difference of nearly equal terms; default the loss), the
+    float64 loss and gradients (of each parameter's largest) within
+    ``grad_tol``."""
+    (l32, g32), (h32, hg32) = runs[(dev.type, "float32")], runs[("cpu", "float32")]
+    (l64, g64), (h64, hg64) = runs[(dev.type, "float64")], runs[("cpu", "float64")]
+    loss_rel = abs(l32 - h32) / (loss_scale or abs(h32))
+    loss64 = abs(l64 - h64) / abs(h64)
+    e32, e64 = grads_err(g32, hg32), grads_err(g64, hg64)
+    print(f"{label}, one step on the card against the CPU from the same parameters and "
+          f"inputs: loss {l32:.7g} against {h32:.7g} ({loss_rel:.2e} of "
+          f"{'the terms, ' + format(loss_scale, '.6g') if loss_scale else 'it'}; float64 "
+          f"{loss64:.2e}); gradients, max abs err over the largest of each parameter: float64 "
+          f"{e64:.2e}, float32 {e32:.2e} (gates: loss {loss_tol:g}, float64 gradients and loss "
+          f"{grad_tol:g})")
+    if loss_rel > loss_tol or e64 > grad_tol or loss64 > grad_tol:
+        fail(f"{label}: the card's step is off the CPU's (loss {loss_rel:.2e}, float64 loss "
+             f"{loss64:.2e}, float64 gradients {e64:.2e})")
+
+
 def longtail_phase(dev, cfg, sync):
     """Phase 11, the long-tail models (ROADMAP A11) at their scripts'
     defaults and the A4 layers, launch counts set to 0 first and read last:
@@ -2931,46 +3088,6 @@ def longtail_phase(dev, cfg, sync):
     quiet = lambda s: None   # noqa: E731
     tmp = tempfile.TemporaryDirectory()
 
-    def peak_reset():
-        if on_card:
-            torch.cuda.reset_peak_memory_stats(dev)
-
-    def peak_gib():
-        """Peak memory since the last reset, as text ("not measured" off a card)."""
-        if not on_card:
-            return "not measured (no card)"
-        return f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB"
-
-    def traced_line(what, fn, step_ms):
-        if not on_card:
-            print(f"longtail {what}: trace not measured (no card)")
-            return
-        traced = device_time_by_kernel(fn, sync)
-        print(f"longtail {what}, one step traced: {traced[2]} kernel launches")
-        print(busy_line(f"longtail {what}, traced", traced, step_ms))
-
-    def step_ms(starts, t_end):
-        """ms a step by the host clock, after the first (warm-up) step."""
-        return 1e3 * (t_end - starts[1]) / (len(starts) - 1)
-
-    def card_against_cpu(what, runs, loss_tol, grad_tol, loss_scale=None):
-        """``loss_scale``: the magnitude the float32 loss is held against
-        where it is a difference of nearly equal terms (default: the loss)."""
-        (l32, g32), (h32, hg32) = runs[(dev.type, "float32")], runs[("cpu", "float32")]
-        (l64, g64), (h64, hg64) = runs[(dev.type, "float64")], runs[("cpu", "float64")]
-        loss_rel = abs(l32 - h32) / (loss_scale or abs(h32))
-        loss64 = abs(l64 - h64) / abs(h64)
-        e32, e64 = grads_err(g32, hg32), grads_err(g64, hg64)
-        print(f"longtail {what}, one step on the card against the CPU from the same parameters "
-              f"and batch: loss {l32:.7g} against {h32:.7g} ({loss_rel:.2e} of "
-              f"{'the terms, ' + format(loss_scale, '.6g') if loss_scale else 'it'}; float64 "
-              f"{loss64:.2e}); gradients, max abs err over the largest of each parameter: "
-              f"float64 {e64:.2e}, float32 {e32:.2e} (gates: loss {loss_tol:g}, float64 "
-              f"gradients {grad_tol:g})")
-        if loss_rel > loss_tol or e64 > grad_tol or loss64 > grad_tol:
-            fail(f"longtail: {what}: the card's step is off the CPU's (loss {loss_rel:.2e}, "
-                 f"float64 loss {loss64:.2e}, float64 gradients {e64:.2e})")
-
     try:
         kernels.reset_launches()
         t_phase = time.perf_counter()
@@ -2980,9 +3097,9 @@ def longtail_phase(dev, cfg, sync):
         size = dict(block_size=c["block"], n_frames=c["frames"], width=c["width"],
                     height=c["height"], depth=c["depth"])
         troom.simulate_room(**size, device=dev, log=quiet)   # warm-up
-        peak_reset()
+        peak_reset(dev)
         sims = [troom.simulate_room(**size, device=dev, log=quiet) for _ in range(3)]
-        sim_peak = peak_gib()
+        sim_peak = peak_gib(dev)
         host_sim = troom.simulate_room(**size, device=cpu, log=quiet)
         rec_err = share_err(sims[-1].recording, host_sim.recording)
         frames_err = share_err(sims[-1].frames, host_sim.frames)
@@ -3004,14 +3121,14 @@ def longtail_phase(dev, cfg, sync):
             with torch.no_grad():
                 troom.roomsim(t_in, c_in)
 
-        traced_line("(a) simulate_room", simulate, min(sim_ms))
+        traced_step("longtail (a) simulate_room", simulate, min(sim_ms), dev, sync)
         rec = sims[-1].recording
         target = (rec / (rec.abs().max() + 1e-9)).reshape(1, 1, -1)
-        peak_reset()
+        peak_reset(dev)
         fit = troom.overfit_room(target, c["room"], c["block"], c["frames"], c["steps"], c["lr"],
                                  device=dev, log=quiet)
-        fit_peak = peak_gib()
-        ms = step_ms(fit.step_starts, fit.t_end)
+        fit_peak = peak_gib(dev)
+        ms = host_step_ms(fit.step_starts, fit.t_end)
         print(f"longtail (a) overfit_room at {c['room']} x {c['room']}, {c['frames']} frames, lr "
               f"{c['lr']:g}: {c['steps']} steps, {ms:.1f} ms a step (host clock, after the first); "
               f"peak memory {fit_peak}")
@@ -3027,7 +3144,7 @@ def longtail_phase(dev, cfg, sync):
             with torch.no_grad():
                 torch._foreach_add_(params, updates)
 
-        traced_line("(a) overfit_room", room_step, ms)
+        traced_step("longtail (a) overfit_room", room_step, ms, dev, sync)
         del sims, host_sim, fit
 
         # (b) the textural model
@@ -3042,15 +3159,15 @@ def longtail_phase(dev, cfg, sync):
             m.load_state_dict(state)
             return m
 
-        card_against_cpu("(b) textural", one_step_both(
+        card_against_cpu("longtail (b) textural", one_step_both(
             build_textural, lambda m, d, dt: ttx.textural_loss(
                 m, stft(seg.to(d, dt), 2048, 256, pad=True))[0], dev),
-            tol["loss"], tol["gradients64"])
-        peak_reset()
+            dev, tol["loss"], tol["gradients64"])
+        peak_reset(dev)
         run = ttx.train_textural(iterations=c["steps"], smoke=c["smoke"],
                                  out=os.path.join(tmp.name, "textural"), device=dev, log=quiet)
-        tex_peak = peak_gib()
-        ms = step_ms(run.step_starts, run.t_end)
+        tex_peak = peak_gib(dev)
+        ms = host_step_ms(run.step_starts, run.t_end)
         print(f"longtail (b) train_textural at {size['n_samples']} samples, "
               f"{size['n_events']} events, {size['n_atoms']} x {size['atom_size']} atoms, latent "
               f"16: {c['steps']} steps, {ms:.1f} ms a step (host clock, after the first); peak "
@@ -3060,8 +3177,8 @@ def longtail_phase(dev, cfg, sync):
         adam = Adam(1e-3)
         st = adam.init(list(run.model.parameters()))
         tspec = stft(seg.to(dev), 2048, 256, pad=True)
-        traced_line("(b) train_textural", lambda: ttx.textural_step(run.model, adam, st, tspec),
-                    ms)
+        traced_step("longtail (b) train_textural",
+                    lambda: ttx.textural_step(run.model, adam, st, tspec), ms, dev, sync)
         del run
 
         # (c) the functional song
@@ -3080,15 +3197,15 @@ def longtail_phase(dev, cfg, sync):
             m.load_state_dict(state)
             return m
 
-        card_against_cpu("(c) funcsong, the first crop", one_step_both(
+        card_against_cpu("longtail (c) funcsong, the first crop", one_step_both(
             build_funcsong, lambda m, d, dt: tfs.funcsong_loss(
                 m, f_target.to(d, dt), f_pos.to(d, dt))[0], dev),
-            tol["funcsong_loss"], tol["funcsong_gradients64"])
-        peak_reset()
+            dev, tol["funcsong_loss"], tol["funcsong_gradients64"])
+        peak_reset(dev)
         run = tfs.train_funcsong(iterations=c["steps"], smoke=c["smoke"],
                                  out=os.path.join(tmp.name, "funcsong"), device=dev, log=quiet)
-        fs_peak = peak_gib()
-        ms = step_ms(run.step_starts, run.t_end)
+        fs_peak = peak_gib(dev)
+        ms = host_step_ms(run.step_starts, run.t_end)
         print(f"longtail (c) train_funcsong, a {run.total_samples}-sample song, crops of {n}, "
               f"batch {s['batch_size']}, {ch} position channels, hidden {s['hidden']}, "
               f"{s['layers']} layers, 64 resonances ({run.n_params} parameters): {c['steps']} "
@@ -3118,8 +3235,8 @@ def longtail_phase(dev, cfg, sync):
         adam = Adam(1e-3)
         st = adam.init(list(run.model.parameters()))
         tgt, pos = f_target.to(dev), f_pos.to(dev)
-        traced_line("(c) train_funcsong", lambda: tfs.funcsong_step(run.model, adam, st, tgt,
-                                                                    pos), ms)
+        traced_step("longtail (c) train_funcsong",
+                    lambda: tfs.funcsong_step(run.model, adam, st, tgt, pos), ms, dev, sync)
         del run
 
         # (d) the audio operator
@@ -3145,18 +3262,18 @@ def longtail_phase(dev, cfg, sync):
                                                 w["pool_step"], padding=w["pool_step"],
                                                 count_include_pad=True)
         terms = float(torch.linalg.vector_norm(pooled, dim=-1).sum())
-        card_against_cpu(f"(d) audiooperator at {n} samples", one_step_both(
+        card_against_cpu(f"longtail (d) audiooperator at {n} samples", one_step_both(
             build_operator, lambda m, d, dt: tao.operator_loss(
                 m, tuple(b.to(d, dt) for b in batch), enc.to(d, dt), w["pool_window"],
                 w["pool_step"]), dev),
-            tol["loss"], tol["gradients64"], loss_scale=terms)
+            dev, tol["loss"], tol["gradients64"], loss_scale=terms)
         for overfit in (False, True):
             label = "--overfit" if overfit else "random batches"
-            peak_reset()
+            peak_reset(dev)
             run = tao.train_audiooperator(iterations=c["steps"], overfit=overfit, out=None,
                                           device=dev, log=quiet, **w)
-            op_peak = peak_gib()
-            ms = step_ms(run.step_starts, run.t_end)
+            op_peak = peak_gib(dev)
+            ms = host_step_ms(run.step_starts, run.t_end)
             print(f"longtail (d) train_audiooperator ({label}) at {w['n_samples']} samples, "
                   f"{nb} bands, model {w['model_dim']}, latent {ld}, envelope {er}, batch 4, "
                   f"pool {w['pool_window']}/{w['pool_step']}: {c['steps']} steps, {ms:.1f} ms a "
@@ -3171,9 +3288,10 @@ def longtail_phase(dev, cfg, sync):
                 b = tao.make_batch(torch.Generator().manual_seed(1), 4, w["n_samples"], nb,
                                    2048.0, er, ld, dev)
                 full_enc = tao.times_encoding(4, w["n_samples"], nb, 2048.0, dev)
-                traced_line(f"(d) train_audiooperator at {w['n_samples']} samples",
+                traced_step(f"longtail (d) train_audiooperator at {w['n_samples']} samples",
                             lambda: tao.operator_step(run.model, adam, st, b, full_enc,
-                                                      w["pool_window"], w["pool_step"]), ms)
+                                                      w["pool_window"], w["pool_step"]),
+                            ms, dev, sync)
                 del b, full_enc
             del run
             key = "operator_overfit" if overfit else "operator_random"
@@ -3335,6 +3453,337 @@ def layers_check(dev):
              f"({max(errs, key=errs.get)})")
 
 
+def perceptual_phase(dev, cfg, sync):
+    """Phase 12, the perceptual stack, the remaining losses and the
+    resonance chain (ROADMAP A5, A6), launch counts set to 0 first and read
+    last: (a) ``overfit_resonance`` at scripts/resonance_overfit.py's
+    defaults, after one step on the card against the CPU from the same
+    parameters, target (``get_one_audio_segment(n, seed=9)`` off the demo
+    corpus under a temporary MPTPU_CACHE) and noise, its trajectory held to
+    ``mptpu``'s (tests/reference/resonance_trajectory.py, on its synthetic
+    target and ``mptpu``'s draws); (b) ``run_phaseinvariance`` at the
+    script's defaults, each transform's trajectory held to ``mptpu``'s; (c)
+    ``synthesize_texture`` at the script's defaults with the texture and
+    the scattering features, each after one step on the card against the
+    CPU (the scattering features at 2^17 in float32 only, and gated on a
+    fall), the texture trajectory held to ``mptpu``'s at 2^17 samples and
+    the scattering one at ``--tiny``; (d) the A5 modules that no script reaches,
+    the card against the CPU in float64; none of the six kernels launched.
+    Each of (a) to (c) prints its ms a step, a traced step's launches,
+    device-busy time and idle share, and its peak memory."""
+    import os
+    import tempfile
+
+    import torch
+
+    from mptpu_torch import kernels
+    from mptpu_torch.data import get_one_audio_segment
+    from mptpu_torch.data.synthetic import synthetic_audio
+    from mptpu_torch.models import phaseinvariance as tpi
+    from mptpu_torch.models import resonance_overfit as tro
+    from mptpu_torch.models import texture as ttex
+    from mptpu_torch.ops.norms import max_norm
+    from mptpu_torch.train.optim import Adam, make_train_step
+
+    on_card = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    ref, tol = cfg["reference"], dict(PERCEPTUAL_TOL, **cfg.get("tol", {}))
+    quiet = lambda s: None   # noqa: E731
+    tmp = tempfile.TemporaryDirectory()
+    saved = {k: os.environ.get(k) for k in ("MPTPU_CACHE", "AUDIO_PATH")}
+    os.environ.pop("AUDIO_PATH", None)
+    os.environ["MPTPU_CACHE"] = tmp.name
+
+    class Waveform(torch.nn.Module):
+        """texture's parameter, the raw waveform, as a module for
+        ``one_step_both``."""
+
+        def __init__(self, init):
+            super().__init__()
+            self.waveform = torch.nn.Parameter(init.clone())
+
+    try:
+        kernels.reset_launches()
+        t_phase = time.perf_counter()
+
+        # (a) the resonance overfit
+        c = cfg["resonance"]
+        n = 2**12 if c["tiny"] else 2**15
+        noise = np.load(ROOT / "tests" / "reference" / "resonance_noise.npy")
+        corpus = get_one_audio_segment(n, 22050, seed=9, device=cpu)
+        state = tro.OverfitResonanceStack(n, device=cpu).state_dict()
+
+        def build_resonance(d):
+            m = tro.OverfitResonanceStack(n, device=d)
+            m.load_state_dict(state)
+            return m
+
+        card_against_cpu(f"perceptual (a) overfit_resonance at {n} samples, "
+                         f"get_one_audio_segment({n}, seed=9)", one_step_both(
+            build_resonance, lambda m, d, dt: tro.ResonanceLoss(corpus.to(d, dt))(
+                m(torch.from_numpy(noise[0]).to(d, dt))), dev),
+            dev, tol["loss"], tol["gradients64"])
+        target = torch.from_numpy(synthetic_audio(n, 22050, n_events=max(4, int(n / 22050 * 8)),
+                                                  seed=9))
+        peak_reset(dev)
+        run = tro.overfit_resonance(iterations=c["steps"], tiny=c["tiny"], target=target,
+                                    noise=lambda i: torch.from_numpy(noise[i]), device=dev,
+                                    log=quiet)
+        res_peak = peak_gib(dev)
+        ms = host_step_ms(run.step_starts, run.t_end)
+        n_params = sum(p.numel() for p in run.model.parameters())
+        print(f"perceptual (a) overfit_resonance at {n} samples, 128 f0s (512 waves), depth 2, "
+              f"4 mix channels ({n_params} parameters), lr 1e-3, mptpu's impulse noise: "
+              f"{c['steps']} steps, {ms:.1f} ms a step (host clock, after the first); peak "
+              f"memory {res_peak}")
+        trajectory_check("perceptual (a) overfit_resonance", run.losses, ref["resonance"],
+                         tol["trajectory"], falls(ref["resonance"]))
+        adam = Adam(1e-3)
+        st = adam.init(list(run.model.parameters()))
+        loss_fn = tro.ResonanceLoss(target.reshape(1, 1, -1).to(dev))
+        nz = torch.from_numpy(noise[0]).to(dev)
+        traced_step("perceptual (a) overfit_resonance",
+                    lambda: tro.resonance_step(run.model, adam, st, loss_fn, nz), ms, dev, sync)
+        del run, loss_fn, adam, st
+
+        # (b) the phase-invariance study
+        c = cfg["phase"]
+        peak_reset(dev)
+        results = tpi.run_phaseinvariance(iterations=c["steps"], n_samples=c["n_samples"],
+                                          out=os.path.join(tmp.name, "phase"), device=dev,
+                                          log=quiet)
+        pi_peak = peak_gib(dev)
+        seg = torch.from_numpy(tpi.phaseinvariance_target(c["n_samples"])).reshape(1, 1, -1)
+        transforms = tpi.transforms(dev)
+        for name, r in results.items():
+            pr = r["run"]
+            ms = host_step_ms(pr.step_starts, pr.t_end)
+            print(f"perceptual (b) run_phaseinvariance {name} at {c['n_samples']} samples, lr "
+                  f"1e-2: {c['steps']} steps, {ms:.1f} ms a step (host clock, after the first; "
+                  f"each step reads its loss for the NaN guard); loss {r['final_loss']:.6g} at "
+                  f"step 0, {pr.step_losses[-1]:.6g} at the last; waveform SNR "
+                  f"{r['snr_db']} dB, LSD {r['lsd_db']} dB")
+            trajectory_check(f"perceptual (b) {name}", pr.step_losses, ref[f"phase_{name}"],
+                             tol["phase_trajectory"], falls(ref[f"phase_{name}"]))
+            x = pr.audio.clone().requires_grad_()
+            transform, real = transforms[name], transforms[name](seg.to(dev))
+            opt = torch.optim.Adam([x], lr=1e-2, betas=(0.9, 0.999))
+            step = make_train_step(lambda: torch.mean((transform(x) - real) ** 2), opt)
+            traced_step(f"perceptual (b) run_phaseinvariance {name}", step, ms, dev, sync)
+            del x, real, opt
+        wavs = [f for f in os.listdir(os.path.join(tmp.name, "phase")) if f.endswith(".wav")]
+        print(f"perceptual (b) run_phaseinvariance: peak memory {pi_peak} over the three "
+              f"transforms; metrics.json, report.html and {len(wavs)} WAVs written")
+        del results
+
+        # (c) texture synthesis, the texture and the scattering features
+        for features, c in (("texture", cfg["texture"]), ("scattering", cfg["scattering"])):
+            sizes = [c["tiny"]] + ([True] if c.get("reference_tiny") and not c["tiny"] else [])
+            for tiny in sizes:
+                n = 2**12 if tiny else 2**17
+                tseg = torch.from_numpy(synthetic_audio(
+                    n, 22050, n_events=max(4, int(n / 22050 * 8)), seed=5)).reshape(1, 1, -1)
+                target = max_norm(tseg)
+                init = torch.randn((1, 1, n), generator=torch.Generator().manual_seed(0)) * 0.01
+                what = f"(c) synthesize_texture {features} at {n} samples"
+                if features == "texture" or tiny:
+                    def texture_of(m, d, dt, tiny=tiny, n=n, target=target):
+                        tf = ttex.texture_featurizer(features, n, tiny, d)
+                        return ttex.texture_loss(m.waveform, tf, tf(target.to(d, dt)))
+
+                    card_against_cpu(f"perceptual {what}", one_step_both(
+                        lambda d: Waveform(init).to(d), texture_of, dev),
+                        dev, tol["loss"], tol["gradients64"])
+                else:   # the CPU's float64 backward of the (64, 64, 2^17) scattering is slow:
+                    # one float32 step's loss and gradient, card against CPU
+                    host, host_grad = texture_gradient(features, n, tiny, init, target, cpu)
+                    card, card_grad = texture_gradient(features, n, tiny, init, target, dev)
+                    grad_err = share_err(card_grad, host_grad)
+                    print(f"perceptual {what}, one float32 step on the card against the CPU "
+                          f"from the same start: loss {card:.7g} against {host:.7g}; gradient "
+                          f"max abs err over the largest {grad_err:.2e} (gate "
+                          f"{tol['scattering_gradients32']:g})")
+                    if grad_err > tol["scattering_gradients32"]:
+                        fail(f"perceptual: {what}: the card's float32 gradient is {grad_err:.2e} "
+                             f"off the CPU's")
+                    del card_grad, host_grad
+                peak_reset(dev)
+                run = ttex.synthesize_texture(iterations=c["steps"], tiny=tiny, features=features,
+                                              target=target, init=init,
+                                              out=os.path.join(tmp.name, f"{features}{n}"),
+                                              device=dev, log=quiet)
+                tex_peak = peak_gib(dev)
+                ms = host_step_ms(run.step_starts, run.t_end)
+                print(f"perceptual {what}, {16 if tiny else 64} filters, lr 1e-3: {c['steps']} "
+                      f"steps, {ms:.1f} ms a step (host clock, after the first); peak memory "
+                      f"{tex_peak}")
+                key = f"texture_{features}" + ("_tiny" if tiny else "")
+                if key in ref:
+                    trajectory_check(f"perceptual {what}", run.losses, ref[key],
+                                     tol[f"{features}_trajectory" if features == "scattering"
+                                         else "trajectory"], falls(ref[key]))
+                else:
+                    first = abs(run.losses[0] - host) / abs(host)
+                    q = max(3, len(run.losses) // 4)
+                    print(f"perceptual {what}: no mptpu trajectory at this size (its JAX-CPU run "
+                          f"takes far longer than minutes); loss every step "
+                          + ", ".join(f"{v:.7g}" for v in run.losses) + f"; the first "
+                          f"{first:.2e} of the CPU's forward from the same start (gate "
+                          f"{tol['loss']:g}); medians of the first and last {q}: "
+                          f"{np.median(run.losses[:q]):.7g} -> "
+                          f"{np.median(run.losses[-q:]):.7g} (gated on a fall, as mptpu's falls "
+                          f"at --tiny)")
+                    if not np.isfinite(run.losses).all() or first > tol["loss"]:
+                        fail(f"perceptual: {what}: losses not finite or the first {first:.2e} "
+                             f"off the CPU's")
+                    if not falls(run.losses):
+                        fail(f"perceptual: {what}: the loss did not fall")
+                tf = ttex.texture_featurizer(features, n, tiny, dev)
+                tfeat = tf(target.to(dev))
+                x = run.params.clone().requires_grad_()
+                adam = Adam(1e-3)
+                st = adam.init([x])
+                traced_step(f"perceptual {what}",
+                            lambda: ttex.texture_step(x, adam, st, tf, tfeat), ms, dev, sync)
+                del run, x, st, tf, tfeat
+
+        # (d) the A5 modules that no script reaches, card against CPU in float64
+        perceptual_modules_check(dev, tol["modules"])
+
+        launches = dict(kernels.LAUNCHES)
+        if any(launches.values()):
+            fail(f"perceptual phase: launches {launches}, expected none")
+        print(f"perceptual launches of the six kernels {launches} (none expected); the phase "
+              f"took {time.perf_counter() - t_phase:.1f} s (host clock)")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tmp.cleanup()
+
+
+def texture_gradient(features, n, tiny, init, target, d, dtype=None):
+    """``texture_loss`` at the waveform ``init`` against ``target``'s
+    features, and its gradient by the waveform, on ``d`` in ``dtype``
+    (default float32): (loss, gradient)."""
+    import torch
+
+    from mptpu_torch.models import texture as ttex
+
+    dtype = dtype or torch.float32
+    tf = ttex.texture_featurizer(features, n, tiny, d)
+    x = init.to(d, dtype).requires_grad_()
+    loss = ttex.texture_loss(x, tf, tf(target.to(d, dtype)))
+    (grad,) = torch.autograd.grad(loss, [x])
+    return float(loss.detach()), grad.detach()
+
+
+def perceptual_modules_check(dev, tol):
+    """Phase 12(d): each A5 module that no script reaches, and two of A6, at
+    a small size, forward and the gradient of ``sum(out * cotangent)`` by
+    its inputs and parameters, on the card against the CPU in float64
+    (within ``tol`` of each tensor's largest; a tensor that is 0 in exact
+    arithmetic, below 1e-12 of the case's largest, is not held). The info
+    losses run at their init's scale: in float64 their codes are decided
+    far beyond rounding (scores near 2e-4, top-two gaps down to 5.4e-9;
+    the float32 tests widen the kernels 50-fold for that).
+    ``MultiBandSpectralInfoLoss`` runs over two bands, 1024 and 2048 on
+    2048 samples."""
+    import torch
+
+    from mptpu_torch.config import Experiment
+    from mptpu_torch.gen.ddsp import HarmonicModel
+    from mptpu_torch.gen.transfer import freq_domain_transfer_function_to_resonance
+    from mptpu_torch.losses import (AutocorrelationLoss, CorrelationLoss,
+                                    MultiBandSpectralInfoLoss, MultiWindowSpectralInfoLoss,
+                                    SpectralInfoLoss, least_squares_disc_loss,
+                                    least_squares_generator_loss, serial_loss)
+    from mptpu_torch.ops.stft import stft
+    from mptpu_torch.perceptual import (CochleaModel, MoreCorrectScattering,
+                                        PsychoacousticFeature, mel_scale_hz)
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(0)
+
+    def r(*shape, lo=None, hi=None):
+        if lo is not None:
+            return torch.rand(*shape, generator=gen, dtype=torch.float64) * (hi - lo) + lo
+        return torch.randn(*shape, generator=gen, dtype=torch.float64)
+
+    def exp(d):
+        return Experiment(22050, 4096, model_dim=16, kernel_size=128, device=d)
+
+    a, b = r(1, 1, 4096), r(1, 1, 4096)
+    cases = {
+        "Experiment.perceptual_feature": (lambda d: (exp(d).perceptual_feature, None), [a]),
+        "Experiment.pooled_filter_bank": (lambda d: (exp(d).pooled_filter_bank, None), [a]),
+        "Experiment.perceptual_triune": (lambda d: (lambda x: torch.cat(
+            [v.reshape(-1) for v in exp(d).perceptual_triune(x)]), None), [a]),
+        "Experiment.perceptual_loss l2": (lambda d: (exp(d).perceptual_loss, None), [a, b]),
+        "Experiment.perceptual_loss l1": (lambda d: (lambda x, y: exp(d).perceptual_loss(
+            x, y, "l1"), None), [a, b]),
+        "CochleaModel": (lambda d: (CochleaModel(n_filters=16, kernel_size=128, device=d), None),
+                         [r(2, 1, 1024)]),
+        "PsychoacousticFeature.loss": (lambda d: (PsychoacousticFeature(
+            n_bands=8, device=d).loss, None), [r(1, 1, 16384), r(1, 1, 16384)]),
+        "MoreCorrectScattering": (lambda d: (MoreCorrectScattering(
+            22050, mel_scale_hz(20, 11000, 6), 64, device=d), None), [r(1, 1, 1024)]),
+    }
+    noise, perm = r(1, 1024 * 16), torch.randperm(1024 * 16, generator=gen)
+    cases["CorrelationLoss"] = (lambda d: (lambda x, y: CorrelationLoss(64)(
+        x, y, noise=noise.to(d), indices=perm.to(d)), None), [a, b * 3])
+    cases["serial_loss"] = (lambda d: (lambda x, y: serial_loss(
+        y, x, lambda v: stft(v, 128, 64, pad=True)), None), [r(1, 1, 512), r(1, 3, 512)])
+    cases["least_squares GAN losses"] = (lambda d: (lambda x, y: least_squares_disc_loss(x, y)
+                                                    + least_squares_generator_loss(y), None),
+                                         [r(4, 3), r(4, 3)])
+    info = {"SpectralInfoLoss": lambda d: SpectralInfoLoss(256, 64, (8, 8), (4, 4),
+                                                          n_centroids=32, device=d),
+            "MultiWindowSpectralInfoLoss": lambda d: MultiWindowSpectralInfoLoss(
+                (((16, 16), (8, 8)), ((8, 16), (4, 8))), device=d),
+            "MultiBandSpectralInfoLoss": lambda d: MultiBandSpectralInfoLoss((1024, 2048),
+                                                                             device=d)}
+    for name, make in info.items():
+        n = 8192 if name.startswith("MultiWindow") else 2048
+        cases[name] = (lambda d, make=make: (lambda m: (m, m))(make(d)), [r(1, 1, n), r(1, 1, n)])
+    cases["AutocorrelationLoss.multiband_loss"] = (lambda d: (AutocorrelationLoss(
+        8, 64, device=d).multiband_loss, None), [r(2, 1, 2048), r(2, 1, 2048)])
+    cases["freq_domain_transfer_function_to_resonance"] = (lambda d: (
+        lambda c: freq_domain_transfer_function_to_resonance(64, c, 16), None),
+        [r(2, 33, lo=0.5, hi=0.99)])
+    hm = HarmonicModel(n_voices=4, n_profiles=8, n_harmonics=16, n_frames=16, n_samples=1024)
+    cases["HarmonicModel"] = (lambda d: (hm, None), [r(8, 16, lo=0.0, hi=0.1), r(1, 128),
+                                                     r(1, 512)])
+    errs = {}
+    for name, (build, inputs) in cases.items():
+        outs = {}
+        for d in (dev, cpu):
+            fn, module = build(d)
+            params = []
+            if module is not None:
+                module.double()
+                params = list(module.parameters())
+            xs = [x.to(d).requires_grad_() for x in inputs]
+            out = fn(*xs)
+            cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(1),
+                              dtype=torch.float64).to(d)
+            grads = torch.autograd.grad(out, xs + params, cot, allow_unused=True,
+                                        materialize_grads=True)
+            outs[d.type] = [out.detach()] + list(grads)
+        floor = 1e-12 * max(float(h.abs().max()) for h in outs["cpu"])
+        errs[name] = max(share_err(x, h) if max(float(x.abs().max()), float(h.abs().max()))
+                         >= floor else 0.0 for x, h in zip(outs[dev.type], outs["cpu"]))
+    print("perceptual (d) the A5 modules, CorrelationLoss, serial_loss, the GAN and info losses, "
+          "the multiband autocorrelation loss, the transfer function and the harmonic model, "
+          "card against CPU in float64, forward and gradients, max abs err over the largest: "
+          + "; ".join(f"{k} {v:.1e}" for k, v in errs.items()) + f" (gate {tol:g})")
+    worst = max(errs, key=errs.get)
+    if errs[worst] > tol:
+        fail(f"perceptual: {worst} is {errs[worst]:.2e} off the CPU in float64")
+
+
 class _DictInput:
     """An ``EncoderShell`` called with its two bands' features as
     arguments (so that the check above can move them and take their
@@ -3351,8 +3800,8 @@ class _DictInput:
 
 
 def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM, ssm=SSM,
-        siam_train=SIAM_TRAIN, models=MODELS, longtail=LONGTAIL):
-    """Phases 2-11 on device ``dev``; returns the kernels' records."""
+        siam_train=SIAM_TRAIN, models=MODELS, longtail=LONGTAIL, perceptual=PERCEPTUAL):
+    """Phases 2-12 on device ``dev``; returns the kernels' records."""
     import torch
     import torch.nn.functional as F
 
@@ -3769,6 +4218,8 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM, ssm=SSM,
     models_phase(dev, models, sync, records)
 
     longtail_phase(dev, longtail, sync)
+
+    perceptual_phase(dev, perceptual, sync)
 
     # ---- phase 5: per-kernel times
     fm, bm, res = encode_state(sig_b, d2_b, geom)

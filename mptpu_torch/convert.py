@@ -297,9 +297,14 @@ def module_from_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
     ``nn`` stacks (``DilatedStack``, ``MixerStack``, ``Transformer``,
     ``MetaFormer``), ``UNet`` and ``DownsamplingDiscriminator``,
     ``ConvUpsample``, ``AntiCausalAnalysis`` with ``do_norm``,
-    ``FuncSong``, ``AudioOperator``, ``TexturalModel``, ``RoomModel`` and
-    the multiresolution shells. Raises on any name or shape that does not
-    match."""
+    ``FuncSong``, ``AudioOperator``, ``TexturalModel``, ``RoomModel``,
+    the multiresolution shells, ``NoiseModel``, ``GenerateMix``,
+    ``GenerateImpulse``, the resonance modules (``ResonanceBank``,
+    ``TimeVaryingMix``, ``ResonanceBlock`` with its one shared bank,
+    ``ResonanceChain``: each bank's ``res_samples``, ``filters`` and
+    ``Dense_0``), ``OverfitResonanceStack`` with its top-level ``latent``,
+    and the three spectral info losses. Raises on any name or shape that
+    does not match."""
     _copy_tree(module, variables.get("params", variables), "")
     stats = _flatten(variables.get("batch_stats", {}))
     norms = _batch_norms(module)

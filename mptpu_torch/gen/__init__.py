@@ -15,8 +15,13 @@ from .splat import SplattingEventGenerator
 from .ssm import SSM, HyperNetworkLayer, StateSpaceModelEventGenerator, ssm_scan, state_space_model
 from .ssm_complex import ComplexSSM, CompressionModel, param_count
 from .roomsim import RoomModel, overfit_room, roomsim, simulate_room
-from .transfer import (damped_harmonic_oscillator, fft_convolve_correlation,
-                       gaussian_bandpass_filtered, make_waves, make_waves_vectorized)
+from .transfer import (ResonanceBank, ResonanceBlock, ResonanceChain, TimeVaryingMix,
+                       damped_harmonic_oscillator, fft_convolve_correlation,
+                       freq_domain_transfer_function_to_resonance, gaussian_bandpass_filtered,
+                       make_waves, make_waves_vectorized)
+from .ddsp import (HarmonicModel, band_filtered_noise, harmonic_model, noise_bank2, noise_spec,
+                   oscillator_bank)
+from .impulse import GenerateImpulse, GenerateMix, NoiseModel
 
 __all__ = [
     "EventGenerator",
@@ -45,6 +50,20 @@ __all__ = [
     "make_waves",
     "make_waves_vectorized",
     "fft_convolve_correlation",
+    "freq_domain_transfer_function_to_resonance",
+    "ResonanceBank",
+    "ResonanceBlock",
+    "ResonanceChain",
+    "TimeVaryingMix",
+    "HarmonicModel",
+    "band_filtered_noise",
+    "harmonic_model",
+    "noise_bank2",
+    "noise_spec",
+    "oscillator_bank",
+    "GenerateImpulse",
+    "GenerateMix",
+    "NoiseModel",
     "RoomModel",
     "roomsim",
     "simulate_room",

@@ -22,7 +22,9 @@ from .layers import BatchNorm, ConvTranspose1d, LayerNorm, conv_last, flax_conv
 
 class ConvUpsample(nn.Module):
     """latent (batch, latent_dim) -> (batch, out_channels, end_size), or,
-    with ``from_latent=False``, (batch, channels, start_size) -> the same.
+    with ``from_latent=False``, (batch, in_channels, start_size) -> the same
+    (``in_channels`` defaults to ``channels``; flax's first layer takes
+    the input's width).
     Each of the ``log2(end_size / start_size)`` layers doubles the length:
     ``learned`` by a transposed convolution (kernel 4, stride 2, flax's
     ``SAME``: exactly twice), ``nearest`` / ``linear`` by interpolation
@@ -33,7 +35,8 @@ class ConvUpsample(nn.Module):
     def __init__(self, latent_dim: int, channels: int, start_size: int, end_size: int,
                  mode: str = "nearest", out_channels: int = 1, from_latent: bool = True,
                  batch_norm: bool = False, layer_norm: bool = False, init_scale: float = 0.1,
-                 generator: torch.Generator | None = None, device=None):
+                 in_channels: int | None = None, generator: torch.Generator | None = None,
+                 device=None):
         super().__init__()
         if mode not in ("nearest", "linear", "learned", "fft"):
             raise ValueError(f"unsupported mode: {mode}")
@@ -45,20 +48,22 @@ class ConvUpsample(nn.Module):
         if from_latent:
             self.Dense_0 = uniform_linear(latent_dim, channels * start_size, True, init_scale,
                                           gen, device)
+        width = channels if from_latent or in_channels is None else in_channels
         for i in range(self.n_layers):
             if mode == "learned":
-                layer = ConvTranspose1d(channels, channels, 4, 2, "SAME", init_scale, gen, device)
+                layer = ConvTranspose1d(width, channels, 4, 2, "SAME", init_scale, gen, device)
                 self.add_module(f"ConvTranspose_{i}", layer)
             else:
-                self.add_module(f"Conv_{i}", flax_conv(channels, channels, 3, init_scale, gen,
+                self.add_module(f"Conv_{i}", flax_conv(width, channels, 3, init_scale, gen,
                                                        device=device))
+            width = channels
             if batch_norm:
                 self.add_module(f"BatchNorm_{i}", BatchNorm(channels, device=device))
             elif layer_norm:
                 self.add_module(f"LayerNorm_{i}", LayerNorm(channels, use_scale=False,
                                                             use_bias=False, device=device))
         self.out_name = f"Conv_{0 if mode == 'learned' else self.n_layers}"
-        self.add_module(self.out_name, flax_conv(channels, out_channels, 3, init_scale, gen,
+        self.add_module(self.out_name, flax_conv(width, out_channels, 3, init_scale, gen,
                                                  device=device))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:

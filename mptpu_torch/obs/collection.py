@@ -7,28 +7,20 @@ streams into an ``<audio>`` element. The store's keys and encodings are
 
 from __future__ import annotations
 
-import io
 import json
 import time
-import wave
 from typing import Dict, List
 
 import numpy as np
 
 from ..data.kv import KVCollection
+from ..utils.playable import encode_audio as _wav_bytes
 
 
 def encode_audio(samples: np.ndarray, samplerate: int = 22050) -> bytes:
     """Mono 16-bit PCM WAV bytes of ``samples`` (NaN as 0, clipped to [-1, 1])."""
-    buf = io.BytesIO()
     samples = np.nan_to_num(np.asarray(samples, dtype=np.float32).reshape(-1))
-    ints = (np.clip(samples, -1, 1) * 32767).astype("<i2")
-    with wave.open(buf, "wb") as w:
-        w.setnchannels(1)
-        w.setsampwidth(2)
-        w.setframerate(samplerate)
-        w.writeframes(ints.tobytes())
-    return buf.getvalue()
+    return _wav_bytes(samples, samplerate)
 
 
 class Collection:
