@@ -11,7 +11,9 @@ instrument, event search and the learned-atom MP; then the long-tail
 overfit models (room simulation, textural, functional song, audio
 operator) and the remaining layers; then the perceptual stack, the
 remaining losses and the resonance chain with their three entry points
-(resonance overfit, phase invariance, texture synthesis).
+(resonance overfit, phase invariance, texture synthesis); then the rest of
+the generator zoo, the energy-instrument overfit and the GAN and
+experiment-runner trainers.
 
     python3 chip_smoke.py
 
@@ -174,6 +176,22 @@ Phases, each printing lines (any failure exits non-zero):
    (launches, busy and idle share) and peak memory; the A5 modules that no
    script reaches, card against CPU in float64; no launch of the six
    kernels;
+13. (after phase 12, before phase 5's times) the rest of the ``gen/`` zoo,
+   the energy-instrument overfit and the two trainers (ROADMAP A9a) at the
+   widths of ``ZOO`` (each with its source): ``overfit_energy`` at
+   scripts/energy_overfit.py's defaults (2^15 samples, block 512, 128
+   channels, 3 layers) for 100 steps held to ``mptpu``'s trajectory
+   (``ENERGY_REFERENCE``, from tests/reference/energy_trajectory.py), after
+   one step on the card against the CPU on ``get_one_audio_segment(2**15,
+   seed=5)`` (loss; float64 loss and gradients); each generator of the zoo
+   (the spring mesh, the two waveguides, the transfer-function segment
+   generator, the recurrent synth, the audio model, the instrument stack,
+   the five lookups, the three event variants, the conv-impulse generator,
+   the REDS model in both branches) on the card against the CPU, a float32
+   forward and a float64 forward and gradient, with ms and launches of one
+   forward; ``make_gan_steps`` (one step of each player, float64, card
+   against CPU) and ``BaseExperimentRunner`` with checkpoints and
+   ``resume``; no launch of the six kernels;
 5. each kernel's time beside its plain version's, its bound and, for the
    boundary kernel, one ``torch.matmul`` computing the same product; the two
    step kernels per step from a chain of launches, with and without
@@ -181,7 +199,7 @@ Phases, each printing lines (any failure exits non-zero):
    multiband band beside the whole-encode kernel doing the same steps in one
    launch; the two whole-encode kernels and the cluster step kernel by
    cluster size, with the clusters the card holds at once beside each;
-13. a ``kernels`` JSON line, then the result line
+14. a ``kernels`` JSON line, then the result line
     ``{"ok": true, "device": {...}}``.
 
 It needs CUDA and the ``mptpu_torch`` package beside it, and exits with
@@ -482,6 +500,96 @@ PERCEPTUAL_SMALL = dict(
 # - the A5 modules, card against CPU in float64, of each tensor's largest
 PERCEPTUAL_TOL = dict(loss=1e-5, gradients64=1e-10, trajectory=1e-5, phase_trajectory=3e-5,
                       scattering_trajectory=1e-3, scattering_gradients32=1e-4, modules=1e-10)
+# phase 13, the rest of the gen/ zoo, the energy overfit and the two trainers (ROADMAP A9a):
+# mptpu's losses a step on JAX-CPU from the port's seed-0 instrument and the script's amplitudes
+# (python3 tests/reference/energy_trajectory.py [--tiny]) on synthetic_audio(n, 22050,
+# n_events=max(4, n / 22050 * 8), seed=5), which stands in for the script's corpus segment
+ENERGY_REFERENCE = [1896.86, 1897.69, 1896.88, 1896.06, 1895.01, 1893.5, 1891.54, 1891.73,
+                    1887.94, 1886.69, 1880.54, 1880.34, 1863.26, 1879.73, 1869.86, 1871.39,
+                    1848.05, 1862.23, 1850.04, 1854.8, 1837.01, 1853.74, 1833.43, 1848.28,
+                    1829.45, 1840.29, 1826.11, 1830.16, 1827.01, 1821.48, 1824.82, 1818.09,
+                    1821.48, 1812.7, 1817.99, 1809.87, 1812.3, 1804.59, 1805.54, 1802.67,
+                    1794.69, 1801.3, 1793.94, 1778.66, 1793.1, 1821.47, 1768.44, 1816.89,
+                    1780.52, 1764.58, 1806.58, 1760.04, 1797.1, 1763.5, 1812.1, 1797.68,
+                    1775.72, 1789.16, 1761.28, 1791.31, 1781.73, 1767.84, 1774.83, 1755.41,
+                    1762.94, 1754.39, 1753.0, 1759.31, 1747.47, 1762.4, 1746.51, 1749.41,
+                    1755.67, 1743.96, 1746.25, 1752.66, 1742.36, 1745.22, 1750.72, 1741.0,
+                    1750.14, 1743.2, 1741.08, 1748.75, 1739.03, 1742.46, 1746.16, 1737.69,
+                    1745.4, 1742.14, 1736.89, 1743.09, 1738.63, 1736.06, 1737.62, 1737.07,
+                    1735.86, 1734.71, 1735.29, 1737.87]
+ENERGY_REFERENCE_SMALL = [16.7574, 16.7556, 16.7543, 16.7526]
+# the widths of phase 13, each with its source:
+# - energy: scripts/energy_overfit.py:44-45 (2^15 samples, block 512, 128 channels, 3 layers),
+#   :57 (16 impulse sites), :61-63 (Adam lr 1e-3), --disc-weight 0.1 (:38); 100 of its 500 steps
+# - the SIAM-family decoders (rows 11 to 13 of the port's table) at SIAM's decoder widths
+#   (mptpu/models/siam.py:215-229 and scripts/siam_overfit.py: 2^17 samples, 512 frames, context
+#   32, 4,096 items or resonances, one event, batch 1); the class defaults otherwise:
+#   WavetableModel 16,384 wavetable samples from band 512, 128 deformations (expressivity 8, the
+#   decoder's instr_expressivity), FFTResonanceLookup window 2,048, MultibandResonanceLookup out
+#   16,384, SimpleEventGenerator 128 channels (the decoder's hidden width); ConvImpulse takes the
+#   resonance overfit's resonance size, 2^15 (scripts/resonance_overfit.py), and impulse 4,096;
+#   SampleResonanceLookup's items are 2^15 samples long (at 2^17 its 4,096 items would be 2 GiB
+#   in float32 and 4 GiB in float64 on each side, for a table that no decoder uses at that size)
+# - the rest at 2^15 samples, 22,050 Hz: RedsLikeModel's defaults (64 octaves; 4,096 wavetables),
+#   8 atoms; WaveguideSynth's (512 delays); waveguide_synth_scan and goo.simulate over 2^15
+#   samples / steps (string_mesh(32), pluck_forces at mass 8: tests/test_gen_extra.py:14-15),
+#   timed at 2^15 on the card and held card against CPU over their first 4,096 (cut: each is a
+#   Python loop of some 5 to 18 launches a sample, 2.8 and 8.2 s a forward on the card, and the
+#   four float32 and float64 forwards and backwards at 2^15 took 32 to 40 s a case);
+#   the widths of tests/test_gen_extra.py scaled to 2^15 samples: TransferFunctionSegmentGenerator
+#   (model 16, window 512, 128 frames; :49-56 has 16, 64, 8 at 256 samples), RecurrentSynth (2
+#   layers, 16 channels, 16 frames of 2,048 samples; :23-31 has 4 of 64), and for the modules
+#   mptpu tests at no size: AudioModel (model 16, 64 frames, 128 noise frames), InstrumentStack
+#   (encoding 32, 16 channels, 128 frames, shape 8, 2 layers), MultiSSM (control 32, 512 frames,
+#   state 128, window 512, 4,096 planes)
+# - the GAN: tests/test_models.py:466-495 at 2^15 samples (2 events, context 8; discriminator
+#   window 256, step 128, 16 channels), Adam lr 1e-4
+ZOO = dict(energy=dict(tiny=False, steps=100, runner_steps=5), n=2**15, siam_n=2**17,
+           siam_frames=512, context=32, items=4096, sample_items_len=2**15, reds_atoms=8,
+           scan_trace=512, scan_compare=4096, reference=ENERGY_REFERENCE, gan_n=2**15)
+# the rehearsal's: --tiny, and every width cut to a few thousand samples
+ZOO_SMALL = dict(energy=dict(tiny=True, steps=4, runner_steps=3), n=2**11, siam_n=2**12,
+                 siam_frames=16, context=8, items=64, sample_items_len=2**11, reds_atoms=2,
+                 scan_trace=64, scan_compare=256, reference=ENERGY_REFERENCE_SMALL,
+                 gan_n=2**11)
+# phase 13's gates, each set from a CPU measurement before the first run on a card:
+# - the energy trajectory within 1e-5 of mptpu's largest loss over its first 12 steps: runs that
+#   differ only in rounding part within the 100 steps (python3 tests/reference/energy_trajectory.py
+#   and the same run on 1 thread and in float64: the port on the CPU from mptpu at step 13, 1.5e-5
+#   there; the port on 1 thread from itself on 2 at step 47; the port in float64 from mptpu's
+#   float32 at step 8), and stand 1.1e-2 to 3.1e-2 of it apart by step 100; the frozen control
+#   (the untrained instrument: 1896.86 at every step) stands 8.5e-2 of it away; so all 100 steps
+#   within 0.05, between the two, the control checked to stand outside it, and a fall (mptpu's
+#   medians of the first and last 25: 1879.73 -> 1741.08);
+# - one step card against CPU: the float32 loss within 1e-5, the float64 loss and gradients
+#   within 1e-10, as in phases 11 and 12;
+# - each generator's float32 forward card against CPU within 1e-5 of its peak (FFTs and matrix
+#   products of float32 on both), within 1e-2 where a running sum of phase over 2^15 samples or
+#   more is taken (the recurrent synth, the oscillator banks: torch.cumsum sums in float64 on the
+#   CPU and by a scan tree on a card, where float32 keeps about 2e-3 rad at 1e4 rad); its float64
+#   forward and gradients within 1e-10 of each tensor's largest; within 1e-3 where a running
+#   sum over frames is taken: of phase in the two transfer-function lookups (to 400 and 1,600
+#   rad) and the two event variants (512 frames), of log-decays in the REDS model's envelopes
+#   (128 frames, down to exp(-500)). Set after runs on an H100 read the FFT lookup's
+#   float32 2.13e-5 of its peak card against CPU (float64 2.2e-16) and the REDS model's 1.28e-4
+#   (float64 1.0e-12), against the 1e-5 first set for them: torch.cumsum sums in other orders on
+#   the two devices, and float32 keeps 3e-5 rad at 400 rad; the phase-sum synths' float64
+#   forward and gradients within 1e-8: torch.cumsum's two orders of float64 additions over 2^15
+#   samples of phase up to 1e4 rad (an ulp 1.8e-12) part by up to n ulp / 2 = 3e-8 rad, by about
+#   sqrt(n) ulp / 2 = 1.6e-10 on a random walk, and an H100 run read the recurrent synth's
+#   float64 forward 1.36e-9 of its peak off the CPU;
+# - the GAN's two steps in float64 card against CPU within 1e-10: losses, new parameters (of each
+#   tensor's largest) and Adam's first moments (of each player's largest: set after an H100 run
+#   read the discriminator's biases 4.6e-10 of their own largest from the CPU, where two
+#   float64 CPU runs on 1 and 4 threads stand 2.3e-10 to 4.2e-10 apart); the generator's times
+#   printed beside the CPU's own spread on 1 thread against all, and not held: some levels of the
+#   binary-tree dirac take FFT round-off for their gradient (CPU runs on 1 and 4 threads: 4.4e-3,
+#   6.5e-3 and 4.0e-2 of the generator's largest first moment at 2^13, 2^14, 2^15, whatever the
+#   render's scale or a discriminator trained 3 or 10 steps first; at 2^12 the CPU agrees with
+#   itself but an H100 run read the card 1.8e-3 off, and the discriminator's moments 9.1e-8);
+#   the runner's resume bit for bit
+ZOO_TOL = dict(trajectory=1e-5, trajectory_steps=12, spread=0.05, loss=1e-5, gradients64=1e-10,
+               forward32=1e-5, phase32=1e-2, phase64=1e-8, frame_sum32=1e-3, gan=1e-10)
 # the probe's kinds: label -> (kind, programmatic)
 PROBE_KINDS = {"grid": ("grid", False), "grid chained": ("grid", True), "fori": ("fori", False)}
 HOLD_CYCLES = 20_000_000   # about 10 ms of device spinning ahead of a timed run
@@ -3784,6 +3892,472 @@ def perceptual_modules_check(dev, tol):
         fail(f"perceptual: {worst} is {errs[worst]:.2e} off the CPU in float64")
 
 
+def zoo_phase(dev, cfg, sync):
+    """Phase 13, the rest of the gen/ zoo, the energy-instrument overfit and
+    the two trainers (ROADMAP A9a), launch counts set to 0 first and read
+    last: (a) ``overfit_energy`` at scripts/energy_overfit.py's defaults,
+    after one step on the card against the CPU from the same parameters and
+    target (``get_one_audio_segment(2**15, seed=5)`` off the demo corpus
+    under a temporary MPTPU_CACHE), its trajectory held to ``mptpu``'s
+    (tests/reference/energy_trajectory.py, on its synthetic target), ms a
+    step, a traced step; (b) each generator of the zoo at the widths of
+    ``ZOO``'s comment: a float32 forward on the card against the CPU, a
+    float64 forward and gradient on the card against the CPU, ms and
+    launches of one forward (the two per-sample loops, ``goo.simulate`` and
+    ``waveguide_synth_scan``, timed apart, their launches traced over their
+    first ``scan_trace`` steps); (c) ``make_gan_steps`` with the splat
+    overfit's generator and ``DownsamplingDiscriminator``, one step each in
+    float64 on the card against the CPU, and ``BaseExperimentRunner``
+    driving (a)'s step over a stream with checkpoints, then ``resume``;
+    none of the six kernels launched."""
+    import os
+    import tempfile
+
+    import torch
+
+    from mptpu_torch import kernels
+    from mptpu_torch.data import get_one_audio_segment
+    from mptpu_torch.data.synthetic import synthetic_audio
+    from mptpu_torch.models import energy_overfit as teo
+    from mptpu_torch.train.optim import Adam
+
+    cpu = torch.device("cpu")
+    tol = dict(ZOO_TOL, **cfg.get("tol", {}))
+    c = cfg["energy"]
+    n, block, channels, layers = teo.TINY if c["tiny"] else teo.FULL
+    tmp = tempfile.TemporaryDirectory()
+    saved = {k: os.environ.get(k) for k in ("MPTPU_CACHE", "AUDIO_PATH")}
+    os.environ.pop("AUDIO_PATH", None)
+    os.environ["MPTPU_CACHE"] = tmp.name
+    try:
+        kernels.reset_launches()
+        t_phase = time.perf_counter()
+
+        # (a) the energy overfit
+        corpus = get_one_audio_segment(n, 22050, seed=5, device=cpu)
+        card_against_cpu(f"zoo (a) overfit_energy at {n} samples, get_one_audio_segment({n}, "
+                         f"seed=5)", one_step_both(
+            lambda d: teo.EnergyOverfit(n, block, channels, layers, device=d),
+            lambda m, d, dt: teo.EnergyLoss(corpus.to(d, dt), block)(m())[0], dev),
+            dev, tol["loss"], tol["gradients64"])
+        target = torch.from_numpy(synthetic_audio(n, 22050, n_events=max(4, int(n / 22050 * 8)),
+                                                  seed=5))
+        peak_reset(dev)
+        run = teo.overfit_energy(iterations=c["steps"], tiny=c["tiny"], target=target, device=dev,
+                                 log=lambda s: None)
+        peak = peak_gib(dev)
+        ms = host_step_ms(run.step_starts, run.t_end)
+        n_params = sum(p.numel() for p in run.state.parameters())
+        print(f"zoo (a) overfit_energy at {n} samples, block {block}, {channels} channels, "
+              f"{layers} layers ({n_params} parameters), lr 1e-3: {c['steps']} steps, {ms:.2f} ms "
+              f"a step (host clock, after the first); peak memory {peak}")
+        ref, k = cfg["reference"], min(tol["trajectory_steps"], len(cfg["reference"]))
+        scale = float(np.abs(ref).max())
+        trajectory_check(f"zoo (a) overfit_energy, its first {k} steps", run.losses[:k], ref[:k],
+                         tol["trajectory"], False, scale=scale)
+        trajectory_check(f"zoo (a) overfit_energy, all {len(ref)} steps", run.losses, ref,
+                         tol["spread"], falls(ref), scale=scale)
+        # the frozen control: the untrained instrument on the same fixed target has the run's
+        # first loss at every step; the gate on all the steps must be one that it fails
+        control = float(np.abs(run.losses[0] - np.asarray(ref, np.float64)).max()) / scale
+        print(f"zoo (a) overfit_energy, the frozen control (the untrained instrument, loss "
+              f"{run.losses[0]:.7g} every step): mptpu's trajectory {control:.2e} of its largest "
+              f"loss away at most (the gate on all {len(ref)} steps {tol['spread']:g} must stand "
+              f"below it)")
+        if len(ref) > k and not control > tol["spread"]:
+            fail(f"zoo (a) overfit_energy: the frozen control stands {control:.2e} from mptpu's "
+                 f"trajectory, within the gate {tol['spread']:g} that should tell it from training")
+        adam = Adam(1e-3)
+        st = adam.init(run.state.leaves())
+        loss_fn = teo.EnergyLoss(target.reshape(1, 1, -1).to(dev), block)
+        traced_step("zoo (a) overfit_energy",
+                    lambda: teo.energy_step(run.state, adam, st, loss_fn), ms, dev, sync)
+
+        # (b) the generators
+        for case in zoo_cases(cfg):
+            zoo_case(dev, case, tol, sync, cfg)
+
+        # (c) the trainers
+        gan_check(dev, cfg, tol["gan"])
+        runner_check(dev, cfg, target, tmp.name)
+
+        launches = dict(kernels.LAUNCHES)
+        if any(launches.values()):
+            fail(f"zoo phase: launches {launches}, expected none")
+        print(f"zoo launches of the six kernels {launches} (none expected); the phase took "
+              f"{time.perf_counter() - t_phase:.1f} s (host clock)")
+    finally:
+        for key, v in saved.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
+        tmp.cleanup()
+
+
+class _Call:
+    """A zoo case's module with the call that renders it: ``call(module,
+    *inputs)``."""
+
+    def __init__(self, module, call):
+        self.module, self.call = module, call
+
+    def __call__(self, *inputs):
+        return self.call(self.module, *inputs)
+
+
+def zoo_cases(cfg):
+    """The generators of phase 13(b): (name, build(device) -> module,
+    call(module, *inputs), numpy inputs, indices of the inputs to
+    differentiate, float32 gate kind, whether the gradient is held, the
+    per-sample steps of a loop traced apart or 0)."""
+    import torch
+
+    from mptpu_torch.gen import (audiomodel, convimpulse, event_variants, goo, instrument,
+                                 lookups, physical, recurrent, reds_model, waveguide)
+    from mptpu_torch.gen.transfer import make_waves
+    from mptpu_torch.utils.music import musical_scale_hz
+
+    n, sn, sf, ctx, items = (cfg["n"], cfg["siam_n"], cfg["siam_frames"], cfg["context"],
+                             cfg["items"])
+    rng = np.random.default_rng(13)
+
+    def r(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def u(*shape):
+        return rng.uniform(-1.0, 1.0, shape).astype(np.float32)
+
+    class Nothing(torch.nn.Module):
+        pass
+
+    cases = []
+    add = lambda *a: cases.append(a)   # noqa: E731
+    # row 5: the spring mesh
+    add("goo.simulate (string_mesh(32), pluck_forces at mass 8)", lambda d: Nothing(),
+        lambda m, f: goo.simulate(goo.string_mesh(32, dtype=f.dtype, device=f.device), f),
+        [goo.pluck_forces(n, 32, position=8, device="cpu").numpy()], (), "forward32", False, n)
+    # row 6: the waveguides
+    add("WaveguideSynth(512 delays)", lambda d: waveguide.WaveguideSynth(512, n, device=d),
+        lambda m, imp, sel, damp, filt, nz: m(imp, sel, damp, filt, noise=nz),
+        [r(1, 64), r(1, 512, 32), r(1, 1), r(1, 128), u(1, 1, n)], (0, 1, 2, 3), "forward32",
+        True, 0)
+    imp = np.zeros(n, np.float32)
+    imp[:256] = r(256)
+    add("waveguide_synth_scan", lambda d: Nothing(),
+        lambda m, i, de, da, fs: waveguide.waveguide_synth_scan(i, de, da, fs),
+        [imp, rng.integers(50, 400, n).astype(np.float32), rng.uniform(0.9, 0.99, n)
+         .astype(np.float32), rng.integers(1, 33, n).astype(np.float32)], (0, 2), "forward32",
+        True, n)
+    # row 7
+    for cumulative in (False, True):
+        add(f"TransferFunctionSegmentGenerator(16, 128 frames, window 512, cumulative="
+            f"{cumulative})", lambda d, c=cumulative: physical.TransferFunctionSegmentGenerator(
+                16, n // 256, 512, n, cumulative=c, device=d),
+            lambda m, x, nz: m(x, noise=nz), [r(1, 16), u(1, 1, n)], (0,), "forward32", True, 0)
+    # row 8 and 9: running sums of phase
+    add("RecurrentSynth(2 layers, 16 channels, 16 frames)", lambda d: recurrent.RecurrentSynth(
+        2, 16, n // 16, 16, device=d), lambda m, x, nz: m(x, noise=nz), [r(1, 16), u(1, n)], (0,),
+        "phase32", True, 0)
+    add("AudioModel(model 16, 64 frames, 128 noise frames)", lambda d: audiomodel.AudioModel(
+        n, 16, 22050, 64, 128, device=d), lambda m, x, nz: m(x, noise=nz),
+        [r(1, 16, 64, scale=0.5), u(1, n)], (0,), "phase32", True, 0)
+    # row 10
+    add("InstrumentStack(encoding 32, 16 channels, 128 frames, shape 8, 2 layers)",
+        lambda d: instrument.InstrumentStack(32, 16, n // 256, n, 8, 2, device=d),
+        lambda m, e, t0, t1, d0, d1, mx: m(e, [t0, t1], [d0, d1], mx),
+        [np.abs(r(1, 1, 16, n // 256)), r(1, 1, 8, 16), r(1, 1, 8, 16), r(1, 1, 1), r(1, 1, 1),
+         r(1, 1, 2)], (0, 1, 3, 5), "forward32", True, 0)
+    # row 11: the lookups at SIAM's decoder widths
+    sel = lambda: np.maximum(r(1, 1, items), 0)   # noqa: E731
+    add(f"SampleResonanceLookup({items} items of {cfg['sample_items_len']})",
+        lambda d: lookups.SampleResonanceLookup(items, cfg["sample_items_len"], device=d),
+        lambda m, s: m(s), [sel()], (0,), "forward32", True, 0)
+    add(f"FFTResonanceLookup({items} items, window 2048, {sn} samples)",
+        lambda d: lookups.FFTResonanceLookup(items, sn, device=d), lambda m, s: m(s), [sel()],
+        (0,), "frame_sum32", True, 0)
+    add(f"WavetableLookup({items} items, {items} waves of 16384)",
+        lambda d: lookups.WavetableLookup(items, items, device=d), lambda m, s: m(s),
+        [r(1, 1, items)], (0,), "forward32", True, 0)
+    add(f"MultibandResonanceLookup({items} items, out 16384)",
+        lambda d: lookups.MultibandResonanceLookup(items, 0, device=d), lambda m, s: m(s),
+        [sel()], (0,), "frame_sum32", True, 0)
+    add(f"MultiSSM(control 32, {sf} frames, state 128, window {2 * sn // sf}, {items} planes)",
+        lambda d: lookups.MultiSSM(ctx, 32, sf, 128, 2 * sn // sf, 1, items, sn, device=d),
+        lambda m, ch, t: m(ch, t), [r(1, 1, items), r(1, 1, sf, scale=0.02)], (0, 1),
+        "forward32", True, 0)
+    # row 12
+    add(f"AudioModelEventGenerator({items} items, {sn} samples, {sf} frames)",
+        lambda d: event_variants.AudioModelEventGenerator(items, sn, sf, 1, ctx, device=d),
+        lambda m, p, t, a, nz: m(p, t, a, noise=nz),
+        [r(1, 1, items), r(1, 1, sf, scale=0.02), r(1, 1, 1), u(1, sf, sn // sf + 1)], (0, 2),
+        "frame_sum32", True, 0)
+    wt_spec = dict(amplitudes=(1,), mix=(8, items * 5), warp=(128,), room_choice=(8,),
+                   room_mix=(2,))
+    add(f"WavetableModel({items} items, {sn} samples, expressivity 8)",
+        lambda d: event_variants.WavetableModel(items, sn, sf, 1, 8, device=d),
+        lambda m, *a: m(dict(zip(wt_spec, a[:-1])), a[-1]),
+        [r(1, 1, *s, scale=0.1) for s in wt_spec.values()] + [r(1, 1, sf, scale=0.02)],
+        (0, 1, 2, 3, 4), "forward32", True, 0)
+    add(f"SimpleEventGenerator(context {ctx}, {sf} frames, {sn} samples, 128 channels)",
+        lambda d: event_variants.SimpleEventGenerator(ctx, sf, sn, 1, 128, device=d),
+        lambda m, p, t, nz: m(p, t, noise=nz),
+        [r(1, 1, ctx), r(1, 1, sf, scale=0.02), u(1, sf, 257, 1)], (0,), "frame_sum32", True, 0)
+    # rows 13 and 14 share one table of items // 4 musical f0s at n samples, which scipy takes
+    # seconds to build: built once here, on the host, and copied to each case's device
+    table = make_waves(n, musical_scale_hz(21, 106, items // 4).tolist(), 22050, device="cpu")
+    # row 13
+    add(f"ConvImpulseEventGenerator(context {ctx}, impulse 4096, resonance {n}, {sn} samples, "
+        f"{items} atoms)", lambda d: convimpulse.ConvImpulseEventGenerator(
+            ctx, min(4096, n), n, 22050, sn, total_atoms=items, waves=table.to(d), device=d),
+        lambda m, v, t, nz: m(v, t, noise=nz),
+        [r(1, 1, ctx), np.abs(r(1, 1, sn // 256)), u(1, min(4096, n))], (0,), "forward32", True,
+        0, ("ResonanceChain_0.Dense_0",))   # the chain's depth mix, scaled out by a unit norm
+    # row 14
+    for wavetables in (False, True):
+        spec = reds_model.RedsLikeModel(n_samples=256, device="cpu").shape_spec
+        if wavetables:
+            spec = dict(spec, f0_choice=(items,))
+        add(f"RedsLikeModel({f'{items} wavetables' if wavetables else '64 octaves'}, "
+            f"{cfg['reds_atoms']} atoms)", lambda d, w=wavetables: reds_model.RedsLikeModel(
+                n_samples=n, use_wavetables=w, n_wavetable_resonances=items,
+                waves=table.to(d) if w else None, device=d),
+            lambda m, *a, s=spec: m(dict(zip(s, a[:-1])), noise=a[-1]),
+            [r(1, cfg["reds_atoms"], *s, scale=0.5) for s in spec.values()] + [u(1, 1, n)],
+            tuple(range(len(spec))), "frame_sum32", True, 0)
+    return cases
+
+
+def zoo_case(dev, case, tol, sync, cfg):
+    """One generator of phase 13(b): the card against the CPU from the same
+    parameters and inputs, float32 forward (of its peak) and float64
+    forward and gradient of ``sum(out * cotangent)`` by the parameters and
+    the inputs ``wrt`` (of each tensor's largest), then ms and launches of
+    one float32 forward on the card."""
+    import torch
+
+    name, build, call, arrays, wrt, kind, with_grad, loop, *rest = case
+    scale_free = rest[0] if rest else ()
+    cpu = torch.device("cpu")
+    host = build(cpu)
+    card = build(dev)
+    card.load_state_dict(host.state_dict())
+
+    # a per-sample loop is held card against CPU over its first scan_compare steps
+    held = [a[:cfg["scan_compare"]] for a in arrays] if loop else arrays
+
+    def inputs(d, dtype, grad, arrays=held):
+        return [torch.tensor(a, device=d, dtype=dtype if a.dtype.kind == "f" else None,
+                             requires_grad=grad and i in wrt) for i, a in enumerate(arrays)]
+
+    def forward(m, d, dtype, grad):
+        m.to(dtype)
+        ins = inputs(d, dtype, grad)
+        with torch.set_grad_enabled(grad):
+            out = call(m, *ins)
+        if not grad:
+            return out.detach(), {}
+        cot = torch.from_numpy(np.random.default_rng(7).standard_normal(tuple(out.shape))).to(
+            d, dtype)
+        names, params = zip(*m.named_parameters()) if len(list(m.parameters())) else ((), ())
+        grads = torch.autograd.grad(torch.sum(out * cot), list(params) + [ins[i] for i in wrt],
+                                    allow_unused=True, materialize_grads=True)
+        return out.detach(), dict(zip(list(names) + [f"input {i}" for i in wrt],
+                                      [g.detach() for g in grads]))
+
+    t0 = time.perf_counter()
+    out_c, _ = forward(card, dev, torch.float32, False)
+    out_h, _ = forward(host, cpu, torch.float32, False)
+    e32 = share_err(out_c, out_h)
+    out_c, g_c = forward(card, dev, torch.float64, with_grad)
+    out_h, g_h = forward(host, cpu, torch.float64, with_grad)
+    e64 = share_err(out_c, out_h)
+    # a gradient that is 0 in exact arithmetic (a scale that a unit norm divides out) is held
+    # against the case's largest gradient, not its own rounding
+    largest = max([float(g.abs().max()) for g in g_h.values()], default=0.0)
+    g64 = max([float((g_c[k].cpu() - g_h[k]).abs().max()) / largest
+               if k.startswith(scale_free) else share_err(g_c[k], g_h[k])
+               for k in g_h if float(g_h[k].abs().max()) > 0], default=0.0)
+    del out_c, out_h, g_c, g_h
+    card.to(torch.float32)
+    ins = inputs(dev, torch.float32, False, arrays)
+    with torch.no_grad():
+        if loop:
+            _, dev_ms, host_ms = timed(lambda: call(card, *ins), 1, dev, warmup=False, host=True)
+            short = [a[:cfg["scan_trace"]] for a in ins]
+            _, _, short_ms = timed(lambda: call(card, *short), 1, dev, host=True)
+            traced = (device_time_by_kernel(lambda: call(card, *short), sync)
+                      if dev.type == "cuda" else None)
+            k = cfg["scan_trace"]
+            launches = (f"{traced[2] * loop // k} (traced over its first {k} steps, "
+                        f"{traced[2]}, times {loop // k})" if traced else "not measured (no card)")
+        else:
+            _, dev_ms, host_ms = timed(lambda: call(card, *ins), 3, dev, host=True)
+            traced = (device_time_by_kernel(lambda: call(card, *ins), sync)
+                      if dev.type == "cuda" else None)
+            launches = traced[2] if traced else "not measured (no card)"
+    gate = tol[kind]
+    gate64 = tol["phase64"] if kind == "phase32" else tol["gradients64"]
+    print(f"zoo (b) {name}: card against CPU"
+          + (f" over the first {cfg['scan_compare']} steps" if loop else "")
+          + f", float32 forward {e32:.2e} of its peak (gate "
+          f"{gate:g}), float64 forward {e64:.2e}"
+          + (f", float64 gradients {g64:.2e}" if with_grad else ", no gradient held")
+          + f" (gate {gate64:g}); one forward {ms_text(dev_ms, host_ms)}, "
+          f"{launches} launches; the case took {time.perf_counter() - t0:.1f} s")
+    if traced and traced[0]:
+        print(busy_line(f"zoo (b) {name}, one forward" + (f" of its first {cfg['scan_trace']} "
+                                                          f"steps" if loop else "") + " traced",
+                        traced, short_ms if loop else host_ms))
+    if not e32 <= gate or not e64 <= gate64 or not g64 <= gate64:
+        fail(f"zoo (b) {name}: the card is off the CPU (float32 {e32:.2e}, float64 {e64:.2e}, "
+             f"gradients {g64:.2e})")
+    del host, card
+
+
+def gan_steps(devices, n, threads=None):
+    """One generator step and one discriminator step of ``make_gan_steps``
+    (the splat overfit's generator, 2 events, context 8;
+    ``DownsamplingDiscriminator``, window 256, step 128, 16 channels; Adam
+    lr 1e-4) in float64 at ``n`` samples on each device, from one seed:
+    {device type: (losses, new parameters, Adam's first moments)}, names
+    prefixed by their player. ``threads`` sets the CPU's threads for the
+    run."""
+    import torch
+    from torch.func import functional_call
+
+    from mptpu_torch.models import OverfitHierarchicalEvents
+    from mptpu_torch.nn.unet import DownsamplingDiscriminator
+    from mptpu_torch.train import Adam, make_gan_steps
+
+    rng = np.random.default_rng(6)
+    batch = (rng.standard_normal((1, 1, n)) * 0.1)
+    noise = rng.uniform(-1, 1, (1, 1, n))
+    saved = torch.get_num_threads()
+    if threads:
+        torch.set_num_threads(threads)
+    results = {}
+    try:
+        for d in devices:
+            gen = OverfitHierarchicalEvents(n, 22050, 2, 8, device=d).double()
+            disc = DownsamplingDiscriminator(256, 128, n, 16, device=d).double()
+
+            def gen_apply(p, b, key, gen=gen):
+                rendered, _, _ = functional_call(gen, p, (), dict(noise=key))
+                return torch.sum(rendered, dim=1, keepdim=True)
+
+            def disc_apply(p, x, disc=disc):
+                return functional_call(disc, p, (x,))
+
+            train_gen, train_disc = make_gan_steps(gen_apply, disc_apply, Adam(1e-4), Adam(1e-4))
+            gp, dp = dict(gen.named_parameters()), dict(disc.named_parameters())
+            b, nz = torch.from_numpy(batch).to(d), torch.from_numpy(noise).to(d)
+            gp2, gs, gl = train_gen(gp, Adam(1e-4).init(list(gp.values())), dp, b, nz)
+            dp2, ds, dl = train_disc(dp, Adam(1e-4).init(list(dp.values())), gp, b, nz)
+            names = [f"gen {k}" for k in gp2] + [f"disc {k}" for k in dp2]
+            results[d.type] = ([gl, dl], dict(zip(names, list(gp2.values()) + list(dp2.values()))),
+                               dict(zip(names, gs.mu + ds.mu)))
+    finally:
+        torch.set_num_threads(saved)
+    return results
+
+
+def moment_errs(mc, mh, held):
+    """Each first moment's largest difference over its player's largest
+    first moment (``gen`` or ``disc``)."""
+    largest = {p: max(float(mh[k].abs().max()) for k in held if k.startswith(p))
+               for p in ("gen", "disc")}
+    return {k: float((mc[k].cpu() - mh[k]).abs().max()) / largest[k.split()[0]] for k in held}
+
+
+def gan_check(dev, cfg, gate):
+    """Phase 13(c): ``gan_steps`` at ``gan_n`` in float64, the card against
+    the CPU: losses, new parameters (of each tensor's largest) and Adam's
+    first moments (of each player's largest). The generator's ``times`` is
+    printed beside the CPU's own spread on 1 thread against all, and not
+    held: some levels of its binary-tree dirac take FFT round-off for their
+    gradient."""
+    import torch
+
+    cpu = torch.device("cpu")
+    n = cfg["gan_n"]
+    results = gan_steps((dev, cpu), n)
+    (lc, pc, mc), (lh, ph, mh) = results[dev.type], results["cpu"]
+    held = [k for k in mh if k != "gen times" and float(mh[k].abs().max()) > 0]
+    loss = max(abs(float(a) - float(b)) / abs(float(b)) for a, b in zip(lc, lh))
+    params = max(share_err(pc[k], ph[k]) for k in held)
+    errs = moment_errs(mc, mh, held)
+    moments = max(errs.values())
+    worst = sorted(errs, key=errs.get)[-3:]
+    times = moment_errs(mc, mh, held + ["gen times"])["gen times"]
+    one = gan_steps((cpu,), n, threads=1)["cpu"][2]
+    witness = moment_errs(one, mh, held + ["gen times"])["gen times"]
+    print("zoo (c) make_gan_steps, the first moments farthest from the CPU's, of their player's "
+          "largest: " + ", ".join(f"{k} {errs[k]:.2e} (its own largest "
+                                  f"{float(mh[k].abs().max()):.2e}, {share_err(mc[k], mh[k]):.2e} "
+                                  f"of it)" for k in reversed(worst)))
+    print(f"zoo (c) make_gan_steps at {n} samples (OverfitHierarchicalEvents, 2 events; "
+          f"DownsamplingDiscriminator): generator loss {float(lc[0]):.9g}, discriminator loss "
+          f"{float(lc[1]):.9g}; float64 card against CPU: losses {loss:.2e}, new parameters "
+          f"{params:.2e}, first moments {moments:.2e} of their player's largest (gate {gate:g}); "
+          f"the times' first moment {times:.2e} of the generator's largest, not held: the CPU on "
+          f"1 thread against all stands {witness:.2e} off")
+    if not max(loss, params, moments) <= gate:
+        fail(f"zoo (c) make_gan_steps: the card is off the CPU ({loss:.2e}, {params:.2e}, "
+             f"{moments:.2e})")
+
+
+def runner_check(dev, cfg, target, tmp):
+    """Phase 13(c): ``BaseExperimentRunner`` driving (a)'s step over a
+    stream of the target, with ``real`` and ``fake`` logged to a collection
+    and a checkpoint every other iteration into a temporary directory; then
+    a new runner's ``resume`` must give back the newest checkpoint's step,
+    parameters and Adam state, bit for bit."""
+    import os
+
+    import torch
+
+    from mptpu_torch.models import energy_overfit as teo
+    from mptpu_torch.obs.collection import Collection
+    from mptpu_torch.train import Adam, BaseExperimentRunner
+
+    c = cfg["energy"]
+    n, block, channels, layers = teo.TINY if c["tiny"] else teo.FULL
+    state = teo.EnergyOverfit(n, block, channels, layers, device=dev)
+    adam = Adam(1e-3)
+    seg = target.reshape(1, 1, -1).to(dev)
+
+    def train_step(params, opt, batch, key):
+        loss, _, _, opt = teo.energy_step(state, adam, opt, teo.EnergyLoss(batch, block))
+        with torch.no_grad():
+            recon = state()
+        return {k: v.detach().clone() for k, v in state.named_parameters()}, opt, loss, recon
+
+    steps = c["runner_steps"]
+    ckpt = os.path.join(tmp, "runner")
+    t0 = time.perf_counter()
+    run = BaseExperimentRunner((seg for _ in range(steps)), train_step,
+                               dict(state.named_parameters()), adam.init(state.leaves()),
+                               checkpoint_dir=ckpt, checkpoint_every=2,
+                               collection=Collection(os.path.join(tmp, "runner_kv")), device=dev)
+    run.run()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    again = BaseExperimentRunner([], train_step, None, None, checkpoint_dir=ckpt, device=dev)
+    step = again.resume()
+    last = (steps - 1) // 2 * 2
+    same = (step == last and set(again.params) == set(run.params)
+            and all(torch.equal(again.params[k], run.params[k]) for k in run.params)
+            and int(again.opt_state.count) == steps
+            and all(torch.equal(a, b) for a, b in zip(again.opt_state.mu, run.opt_state.mu)))
+    print(f"zoo (c) BaseExperimentRunner: {steps} steps of (a)'s step over a stream, "
+          f"{ms:.1f} ms a step (host clock, each reading its loss), losses "
+          + ", ".join(f"{v:.7g}" for v in run.losses)
+          + f"; checkpoints {sorted(os.listdir(ckpt))}; resume gave step {step} (expected "
+          f"{last}) and {'the same' if same else 'OTHER'} parameters and Adam state")
+    if not same or not np.isfinite(run.losses).all():
+        fail("zoo (c) BaseExperimentRunner: resume did not give back the last checkpoint")
+
+
 class _DictInput:
     """An ``EncoderShell`` called with its two bands' features as
     arguments (so that the check above can move them and take their
@@ -3800,8 +4374,8 @@ class _DictInput:
 
 
 def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM, ssm=SSM,
-        siam_train=SIAM_TRAIN, models=MODELS, longtail=LONGTAIL, perceptual=PERCEPTUAL):
-    """Phases 2-12 on device ``dev``; returns the kernels' records."""
+        siam_train=SIAM_TRAIN, models=MODELS, longtail=LONGTAIL, perceptual=PERCEPTUAL, zoo=ZOO):
+    """Phases 2-13 on device ``dev``; returns the kernels' records."""
     import torch
     import torch.nn.functional as F
 
@@ -4220,6 +4794,8 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM, ssm=SSM,
     longtail_phase(dev, longtail, sync)
 
     perceptual_phase(dev, perceptual, sync)
+
+    zoo_phase(dev, zoo, sync)
 
     # ---- phase 5: per-kernel times
     fm, bm, res = encode_state(sig_b, d2_b, geom)

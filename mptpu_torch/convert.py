@@ -37,6 +37,8 @@ def params_from_numpy(tree, device=None):
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):   # a NamedTuple (AdamState)
+            return type(node)(*(conv(v) for v in node))
         if isinstance(node, (list, tuple)):
             return type(node)(conv(v) for v in node)
         if node is None or isinstance(node, str):

@@ -51,3 +51,10 @@ def no_tf32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def grid_dtype(x: torch.Tensor) -> torch.dtype:
+    """float64 for a float64 tensor, float32 otherwise: the precision in
+    which ``mptpu`` computes a grid or a constant next to ``x`` (JAX's
+    default float under x64 or not)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32

@@ -1,5 +1,5 @@
 """Synthesis helpers and event generators of the port (counterpart of
-``mptpu.gen``; only the ported names)."""
+``mptpu.gen``: every name of its ``__all__``, and a few more)."""
 
 from .generator import EventGenerator, ShapeSpec
 from .reds import F0Resonance, exponential_decay
@@ -22,6 +22,22 @@ from .transfer import (ResonanceBank, ResonanceBlock, ResonanceChain, TimeVaryin
 from .ddsp import (HarmonicModel, band_filtered_noise, harmonic_model, noise_bank2, noise_spec,
                    oscillator_bank)
 from .impulse import GenerateImpulse, GenerateMix, NoiseModel
+from .overfitresonance import OverfitResonanceModel
+from .reds_model import RedsLikeModel
+from .convimpulse import ConvImpulseEventGenerator
+from .waveguide import WaveguideSynth, waveguide_synth_scan
+from .physical import TransferFunctionSegmentGenerator, gaussian_window
+from .lookups import (FFTResonanceLookup, MultibandResonanceLookup, MultiSSM,
+                      SampleResonanceLookup, WavetableLookup)
+from .event_variants import AudioModelEventGenerator, SimpleEventGenerator, WavetableModel
+from .instrument import InstrumentLayer, InstrumentStack
+from .goo import SpringMesh, pluck_forces, string_mesh
+from .goo import simulate as goo_simulate
+from .energy import (EnergyBlock, EnergyInstrumentModel, blocks_to_samples,
+                     compute_discontinuity, to_blocks)
+from .recurrent import FrameSynth, RecurrentSynth
+from .audiomodel import AudioModel, OscillatorBank
+from .audiomodel import OscillatorBank as OscillatorBankModule
 
 __all__ = [
     "EventGenerator",
@@ -68,4 +84,46 @@ __all__ = [
     "roomsim",
     "simulate_room",
     "overfit_room",
+    "OverfitResonanceModel",
+    "RedsLikeModel",
+    "ConvImpulseEventGenerator",
+    "WaveguideSynth",
+    "waveguide_synth_scan",
+    "gaussian_window",
+    "TransferFunctionSegmentGenerator",
+    "SampleResonanceLookup",
+    "FFTResonanceLookup",
+    "WavetableLookup",
+    "MultibandResonanceLookup",
+    "MultiSSM",
+    "AudioModelEventGenerator",
+    "WavetableModel",
+    "SimpleEventGenerator",
+    "InstrumentLayer",
+    "InstrumentStack",
+    "SpringMesh",
+    "string_mesh",
+    "goo_simulate",
+    "pluck_forces",
+    "EnergyInstrumentModel",
+    "EnergyBlock",
+    "to_blocks",
+    "blocks_to_samples",
+    "compute_discontinuity",
+    "FrameSynth",
+    "RecurrentSynth",
+    "OscillatorBankModule",
+    "OscillatorBank",
+    "AudioModel",
+    "OverfitControlPlane",
 ]
+
+
+def __getattr__(name):
+    # models.ssm_overfit imports gen's modules, so its OverfitControlPlane is
+    # exported lazily (an eager import is circular when gen comes first)
+    if name == "OverfitControlPlane":
+        from ..models.ssm_overfit import OverfitControlPlane
+
+        return OverfitControlPlane
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

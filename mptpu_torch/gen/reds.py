@@ -73,8 +73,11 @@ class F0Resonance:
             n_atoms=n_events, n_frames=self.n_octaves, base_resonance=0.01,
             n_samples=self.n_octaves,
         )
-        # the float32 constants of mptpu, one rounding for the multiply-add
-        lo, span = float(np.float32(self.min_freq)), float(np.float32(self.freq_range))
+        # the float32 constants of mptpu, one rounding for the multiply-add;
+        # in float64 the exact ones, as mptpu under x64
+        lo, span = self.min_freq, self.freq_range
+        if f0.dtype != torch.float64:
+            lo, span = float(np.float32(lo)), float(np.float32(span))
         f0 = (f0.double() * span + lo).to(f0.dtype) * math.pi
         factors = sequential_cumsum(freq_spacing.expand(batch, n_events, self.n_octaves))
         f0s = f0 * factors   # (batch, n_events, n_octaves) radians a sample

@@ -119,7 +119,8 @@ class EnvelopeAndPosition:
             envelopes = gamma_pdf(kinks.abs(a) + 1e-12, kinks.abs(b) + 1e-12, self.n_samples)
             ramp = torch.zeros_like(envelopes)
             ramp[..., : self.gamma_ramp_size] = (
-                linspace(0.0, 1.0, self.gamma_ramp_size, device=a.device) ** self.gamma_ramp_exponent)
+                linspace(0.0, 1.0, self.gamma_ramp_size, device=a.device, dtype=envelopes.dtype)
+                ** self.gamma_ramp_exponent)
             envelopes = envelopes * ramp
         else:
             raise ValueError(f"{self.envelope_type} is not supported")

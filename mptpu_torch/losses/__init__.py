@@ -32,4 +32,16 @@ __all__ = [
     "stft_transform",
     "serial_loss",
     "serial_matching_pursuit",
+    "make_gan_steps",
+    "gan_cycle",
 ]
+
+
+def __getattr__(name):
+    # the training side's GAN alternation, exported lazily as mptpu does: an
+    # eager import is circular when train is the first package touched
+    if name in ("make_gan_steps", "gan_cycle"):
+        from ..train import gan
+
+        return getattr(gan, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -4,6 +4,7 @@ trainers in ``scripts/``; only the ported names)."""
 from .audiooperator import (AudioOperator, band_pos_encode, envelope_loss,
                             generate_training_batch, train_audiooperator,
                             training_batch_from_draws)
+from .energy_overfit import EnergyOverfit, EnergyLoss, energy_step, overfit_energy
 from .funcsong import FuncSong, count_parameters, song_pos_encoding, train_funcsong
 from .inference import SIAMCodec, SIAMEncoding, quantize_events
 from .instrument import (Note, PlayableInstrument, build_instrument, damped_sequential,
@@ -48,4 +49,5 @@ __all__ = ["OverfitHierarchicalEvents", "SplatFit", "overfit_splat", "splat_loss
            "Splitter", "TexturalModel", "confidence_loss", "train_textural", "lsd_db",
            "reconstruct_with_transform", "run_phaseinvariance", "snr_db",
            "OverfitResonanceStack", "ResonanceLoss", "overfit_resonance", "synthesize_texture",
-           "texture_featurizer"]
+           "texture_featurizer", "EnergyOverfit", "EnergyLoss", "energy_step",
+           "overfit_energy"]

@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from ..device import grid_dtype
 from .windows import linspace
 
 
@@ -40,7 +41,7 @@ def pdf2(means: torch.Tensor, stds: torch.Tensor, n_elements: int, normalize: bo
     """Normal pdf on ``n_elements`` points of [0, 1], one row per entry of
     ``means`` / ``stds`` (the grid is the last axis), optionally divided by
     its peak + 1e-8."""
-    grid = linspace(0.0, 1.0, n_elements, device=means.device)
+    grid = linspace(0.0, 1.0, n_elements, device=means.device, dtype=grid_dtype(means))
     prob = torch.exp(_norm_logpdf(grid, means[..., None], stds[..., None]))
     return _peak_normalize(prob) if normalize else prob
 
@@ -49,7 +50,7 @@ def gamma_pdf(shape: torch.Tensor, rate: torch.Tensor, n_elements: int,
               normalize: bool = True) -> torch.Tensor:
     """Gamma pdf on ``n_elements`` points of [1e-12, 20], optionally divided
     by its peak + 1e-8."""
-    grid = linspace(1e-12, 20.0, n_elements, device=shape.device)
+    grid = linspace(1e-12, 20.0, n_elements, device=shape.device, dtype=grid_dtype(shape))
     a = shape[..., None]
     b = rate[..., None]
     log_prob = a * torch.log(b) + (a - 1.0) * torch.log(grid) - b * grid - torch.lgamma(a)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..device import grid_dtype
 from .fft import irfft, rfft
 
 
@@ -37,7 +38,7 @@ def interpolate_last_axis(low_sr: torch.Tensor, desired_size: int, mode: str = "
     if mode != "linear":
         raise ValueError(f"unsupported mode: {mode}")
     scale = n / desired_size
-    coords = (torch.arange(desired_size, dtype=torch.float32, device=dev) + 0.5) * scale - 0.5
+    coords = (torch.arange(desired_size, dtype=grid_dtype(low_sr), device=dev) + 0.5) * scale - 0.5
     coords = torch.clamp(coords, 0.0, n - 1)
     lo = torch.floor(coords).long()
     hi = torch.clamp_max(lo + 1, n - 1)

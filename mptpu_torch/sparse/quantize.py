@@ -9,7 +9,6 @@ import torch
 from torch import nn
 
 from ..device import default_device
-from ..gen.transfer import make_waves
 from ..ops.kinks import leaky_relu
 from ..ops.ste import hard_softmax, sparse_softmax
 from ..utils.music import musical_scale_hz
@@ -96,6 +95,8 @@ class QuantizedResonanceMixture(nn.Module):
         generator: torch.Generator | None = None,
         device=None,
     ):
+        from ..gen.transfer import make_waves   # here: gen's modules import this one
+
         super().__init__()
         dev = default_device(device)
         self.n_resonances = n_resonances

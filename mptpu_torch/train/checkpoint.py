@@ -23,6 +23,8 @@ def _to_host(tree):
     other leaves (None, strings, numbers) pass through."""
     if isinstance(tree, dict):
         return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):   # a NamedTuple (AdamState)
+        return type(tree)(*(_to_host(v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_host(v) for v in tree)
     if isinstance(tree, torch.Tensor):

@@ -16,6 +16,7 @@ from typing import Callable, Iterable, List, NamedTuple, Sequence
 
 import torch
 
+from ..device import grid_dtype
 from ..ops.kinks import clip
 
 
@@ -75,10 +76,11 @@ def adam_update(grads: Sequence[torch.Tensor], state: AdamState, lr: float, b1: 
     sq = torch._foreach_mul(grads, grads)
     nu = torch._foreach_add(torch._foreach_mul(sq, 1 - b2), torch._foreach_mul(state.nu, b2))
     count = state.count + 1
-    steps = count.to(torch.float32)
     dtype = grads[0].dtype
-    bc1 = (1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=steps.device), steps)).to(dtype)
-    bc2 = (1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=steps.device), steps)).to(dtype)
+    wide = grid_dtype(grads[0])   # the bias corrections in float64 for float64 gradients
+    steps = count.to(wide)
+    bc1 = (1 - torch.pow(torch.tensor(b1, dtype=wide, device=steps.device), steps)).to(dtype)
+    bc2 = (1 - torch.pow(torch.tensor(b2, dtype=wide, device=steps.device), steps)).to(dtype)
     mu_hat = torch._foreach_div(mu, bc1)
     nu_hat = torch._foreach_div(nu, bc2)
     denom = torch._foreach_add(torch._foreach_sqrt(nu_hat), eps)
