@@ -590,6 +590,27 @@ ZOO_SMALL = dict(energy=dict(tiny=True, steps=4, runner_steps=3), n=2**11, siam_
 #   the runner's resume bit for bit
 ZOO_TOL = dict(trajectory=1e-5, trajectory_steps=12, spread=0.05, loss=1e-5, gradients64=1e-10,
                forward32=1e-5, phase32=1e-2, phase64=1e-8, frame_sum32=1e-3, gan=1e-10)
+# phase 14 (ROADMAP A9b), the last entry points: mp_train at scripts/mp_train.py's defaults
+# (BASELINE #1: 512 atoms x 512 taps, 16,384 samples, 100 steps, 25 sweeps, batch 2, flat and
+# multiband), codec_rate at scripts/codec_rate.py's flags (2^17 samples, 32 events, hidden 128,
+# context 32, refine 256, the walk on) on seed-0 parameters, siam_quality at
+# scripts/siam_quality.py's reference configuration (2^17 samples, 32 events, batch 2, STFT
+# 2048/256, lr 1e-4) for 14 steps, not 2,000: 3 timing steps each way, evals at 8 and 12, one
+# streaming eval at 12; ENTRY_SMALL is the CPU rehearsal's (--tiny widths)
+ENTRY = dict(tiny=False, flat_sweeps=25, multiband_sweeps=25,
+             rate=dict(n_samples_log2=17, n_events=32, hidden=128, context_dim=32, refine=256),
+             rate_config=None,
+             quality=dict(timing_steps=3, iterations=14, eval_every=4, stream_eval_every=12),
+             cpu_threads=6)
+ENTRY_SMALL = dict(tiny=True, flat_sweeps=4, multiband_sweeps=2,
+                   rate=dict(n_samples_log2=13, n_events=4, hidden=32, context_dim=16, refine=64),
+                   rate_config="n_samples 2^13, 4 events, STFT 512/256",
+                   quality=dict(timing_steps=1, iterations=7, eval_every=3, stream_eval_every=6),
+                   cpu_threads=2)
+# dictionary: the learned atoms, summed by index_add_ (atomics on the card); db: SNR (an LSD
+# adds twice its float32 resolution on the decode, lsd_resolution); loss: the first step's
+# float32 loss; resume: the step after a resume against the uninterrupted run's
+ENTRY_TOL = dict(dictionary=1e-4, db=0.01, pif=1e-4, loss=1e-4, gradients64=1e-8, resume=1e-5)
 # the probe's kinds: label -> (kind, programmatic)
 PROBE_KINDS = {"grid": ("grid", False), "grid chained": ("grid", True), "fori": ("fori", False)}
 HOLD_CYCLES = 20_000_000   # about 10 ms of device spinning ahead of a timed run
@@ -600,8 +621,7 @@ HOLD_CYCLES = 20_000_000   # about 10 ms of device spinning ahead of a timed run
 PROBE_QUEUED = 512
 PROBE_HOLD_CYCLES = 100_000_000
 
-# published peaks without tensor cores (NVIDIA data sheets): bytes/s, f32 FLOP/s
-PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12), "H100": (3.35e12, 67e12)}
+# the cards' peaks for the bounds are mptpu_torch.utils.profile.PEAKS
 
 # tolerances: the tail dot products are the only sums whose order differs
 # between a kernel and its plain version (512-term float32 sums)
@@ -4373,9 +4393,484 @@ class _DictInput:
         return self.shell({512: a, 1024: b})
 
 
+def lsd_resolution(target, wav_path, window: int, step: int) -> float:
+    """|float32 - float64| of the LSD between ``target`` (1, 1, n) and the
+    decode written at ``wav_path``: the metric's own float32 resolution on
+    that decode (bins at the level of rounding move ``20 log10(|X| +
+    1e-8)`` by decibels)."""
+    import torch
+
+    from mptpu_torch.models.siam_overfit import lsd_db
+    from mptpu_torch.utils.wav import read_wav
+
+    recon, _ = read_wav(str(wav_path))
+    t = target.detach().cpu().reshape(1, 1, -1)[..., : recon.shape[-1]]
+    r = torch.from_numpy(recon.copy()).reshape(1, 1, -1)
+    return abs(float(lsd_db(t, r, window, step)) - float(lsd_db(t.double(), r.double(), window,
+                                                                  step)))
+
+
+def entry_points_cpu_side(work: str, threads: int) -> None:
+    """Phase 14's CPU side, run in a process of its own while the card
+    works: one learning sweep on the planted signal (its encode's events
+    and the learned dictionary into flat_cpu.pt), the rate report of
+    ``work``/rate_run (its values unrounded into rate_cpu.json) and the
+    float32 loss of the quality run's first step on the card's batch and
+    noise (quality_cpu.json)."""
+    import torch
+
+    from mptpu_torch.models import codec_rate as cr
+    from mptpu_torch.models import siam_quality as sq
+    from mptpu_torch.models.siam import fade_tail
+    from mptpu_torch.models.siam_overfit import LossSettings
+
+    from mptpu_torch.sparse import dictionary_learning_step, sparse_code_fast
+
+    torch.set_num_threads(threads)
+    work = Path(work)
+    inp = torch.load(work / "cpu_inputs.pt")
+    t0 = time.perf_counter()
+    sig, d = inp["flat_signal"], inp["flat_dictionary"]
+    # the learning step's encode as dictionary_learning_step calls it on the CPU
+    ev = sparse_code_fast(sig, d / torch.linalg.vector_norm(d, dim=-1, keepdim=True),
+                          n_steps=inp["flat_steps"], block=inp["flat_block"])
+    learned = dictionary_learning_step(sig, d, n_steps=inp["flat_steps"])
+    torch.save(dict(events=tuple(ev[:3]), learned=learned, seconds=time.perf_counter() - t0),
+               work / "flat_cpu.pt")
+    t0 = time.perf_counter()
+    rep = cr.rate_report(str(work / "rate_run"), str(work / "rate_cpu"), walk=True,
+                         noise=inp["rate_noise"], device="cpu", log=lambda s: None, **inp["rate"])
+    rate_s = time.perf_counter() - t0
+    (work / "rate_cpu.json").write_text(json.dumps(rep))
+    model, sz = sq.quality_model(tiny=inp["tiny"], device="cpu")
+    b = inp["batch0"]
+    half = b.shape[-1] // 2
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss, _ = sq.siam_quality_loss(model, LossSettings(sz["window"], sz["step"]), inp["noise0"],
+                                       0.0, b * fade_tail(b.shape[-1], device="cpu"), b,
+                                       torch.sum(b[..., :half] ** 2))
+    (work / "quality_cpu.json").write_text(json.dumps(dict(
+        loss0=float(loss), rate_s=rate_s, loss_s=time.perf_counter() - t0)))
+
+
+def entry_points_phase(dev, cfg, peaks, sync, records):
+    """Phase 14, the last entry points (ROADMAP A9b) through the calls a
+    user makes, launch counts set to 0 before each part and read after it:
+    (a) ``train_flat`` at scripts/mp_train.py's defaults on the demo corpus
+    (under a temporary MPTPU_CACHE): the SNR at each report, the last above
+    the initial, 100 cluster step kernel launches a sweep and no other;
+    then, uncounted, one sweep card against CPU on a planted full-width
+    signal (the learning encode's events, the learned dictionary) and one
+    sweep traced; (b) ``train_multiband`` at the same widths: its launches,
+    which bands pass the fused gate and the cluster step kernel's launches
+    at each, ``store`` then ``load`` bit for bit; (c) ``rate_report`` with
+    the walk on seed-0 parameters, the card against the CPU (counts and
+    kbps equal, SNR within 0.01 dB, LSD within 0.01 dB and twice its float32
+    resolution, PIF rtol 1e-4); (d) ``run_siam_quality`` at the reference
+    configuration for a few steps: synced and pipelined ms, the evals,
+    ``metrics.json``'s keys, the first loss card against CPU, a float64 step
+    at --tiny card against CPU, a resume from the last checkpoint (state bit
+    for bit, the next loss against the uninterrupted run's), a traced step;
+    (e) the host plumbing: the native loader built from the port's C++, the
+    fresh stream, ``get_audio_segment``, the remote store, and
+    ``profile.trace`` and ``utilization`` around one chain of the cluster
+    step kernel. The CPU's sides of (a), (c) and (d) run in a process of their
+    own meanwhile."""
+    import os
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from mptpu_torch import convert, kernels
+    from mptpu_torch.data import (AudioIterator, NativeAudioLoader, fresh_segment_stream,
+                                  get_audio_segment, native_available)
+    from mptpu_torch.data.synthetic import synthetic_audio
+    from mptpu_torch.models import codec_rate as cr
+    from mptpu_torch.models import mp_train as mt
+    from mptpu_torch.models import siam_quality as sq
+    from mptpu_torch.models.siam import draw_noise, fade_tail
+    from mptpu_torch.models.siam_overfit import LossSettings
+    from mptpu_torch.ops.decompose import fft_frequency_decompose
+    from mptpu_torch.sparse import (dictionary_learning_step, fast_geometry, sparse_code_fast)
+    from mptpu_torch.sparse.cuda_fused_mp import fused_step_applicable
+    from mptpu_torch.train.checkpoint import save_checkpoint
+    from mptpu_torch.utils import profile, remote
+    from mptpu_torch.utils.wav import read_wav, write_wav
+
+    cpu = torch.device("cpu")
+    on_card = dev.type == "cuda"
+    tol = ENTRY_TOL
+    K4 = "cuda_fused_step_pipelined"
+    widths = mt.TINY if cfg["tiny"] else mt.DEFAULTS
+    N, A, n, S, B = (widths[k] for k in ("n_atoms", "atom_size", "n_samples", "n_steps",
+                                         "batch_size"))
+    tmp = tempfile.TemporaryDirectory()
+    work = Path(tmp.name)
+    saved = {k: os.environ.get(k) for k in ("MPTPU_CACHE", "AUDIO_PATH", "MPTPU_REMOTE_WEIGHTS")}
+    os.environ.pop("AUDIO_PATH", None)
+    os.environ["MPTPU_CACHE"] = str(work / "cache")
+    os.environ["MPTPU_REMOTE_WEIGHTS"] = str(work / "remote")
+    cpu_proc = None
+
+    def counted(label, want):
+        """Read the counts against ``want`` ({kernel: launches}; every
+        other kernel 0) and return them."""
+        launches = dict(kernels.LAUNCHES)
+        expected = {k: (want.get(k, 0) if on_card else 0) for k in launches}
+        if launches != expected:
+            fail(f"{label}: launches {launches}, expected {expected}")
+        return launches
+
+    try:
+        t_phase = time.perf_counter()
+        # the CPU's inputs: the rate report's run directory (seed-0 parameters at
+        # codec_rate.py's flags) and noise, the quality run's batches and first noise
+        r = cfg["rate"]
+        rate_run = work / "rate_run"
+        rate_run.mkdir()
+        rate_model = siam_model(cpu, dict(
+            n_samples=2 ** r["n_samples_log2"], context_dim=r["context_dim"], hidden=r["hidden"],
+            n_events=r["n_events"], window=512 if cfg["rate_config"] else 2048, step=256))
+        save_checkpoint(str(rate_run / "ema_best.pkl"), convert.module_to_flax(rate_model), None, 0)
+        if cfg["rate_config"]:
+            (rate_run / "metrics.json").write_text(json.dumps({"config": cfg["rate_config"]}))
+        rate_noise = draw_noise(rate_model, (r["n_events"], 1), torch.Generator().manual_seed(42))
+        del rate_model
+        q = cfg["quality"]
+        q_model, q_sz = sq.quality_model(tiny=cfg["tiny"], device=cpu)
+        qn = q_sz["n_samples"]
+        stream = iter(AudioIterator(2, qn, normalize=True, seed=1, device=cpu))
+        batches = [next(stream) for _ in range(q["iterations"] + 1)]
+        noise0 = sq.step_noise(q_model, 0, 2, device=dev).cpu()
+        del q_model
+        d_np, sig_np = planted_signal(dict(batch=B, n_atoms=N, atom_size=A, n_samples=n,
+                                           n_steps=S))
+        block = learning_block(A)
+        torch.save(dict(rate_noise=rate_noise, rate=r, batch0=batches[0], noise0=noise0,
+                        tiny=cfg["tiny"], flat_signal=torch.from_numpy(sig_np),
+                        flat_dictionary=torch.from_numpy(d_np), flat_steps=S, flat_block=block),
+                   work / "cpu_inputs.pt")
+        with open(work / "cpu_side.log", "w") as cpu_log:   # a file: a pipe could fill
+            cpu_proc = subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "chip_smoke.entry_points_cpu_side(sys.argv[1], int(sys.argv[2]))",
+                 str(work), str(cfg["cpu_threads"])],
+                cwd=str(ROOT), stdout=cpu_log, stderr=subprocess.STDOUT)
+        print(f"entry: the CPU's side of (a), (c) and (d) started in a process of its own "
+              f"({cfg['cpu_threads']} threads)")
+
+        # (a) the flat trainer
+        t_part = time.perf_counter()
+        flat_kw = dict(widths, sweeps=cfg["flat_sweeps"])
+        if flat_kw["sweeps"] < widths["sweeps"]:
+            print(f"entry (a): cut to {flat_kw['sweeps']} sweeps of the script's "
+                  f"{widths['sweeps']}")
+        kernels.reset_launches()
+        peak_reset(dev)
+        t0 = time.perf_counter()
+        flat = mt.train_flat(**flat_kw, device=dev, log=lambda s: print(f"entry (a) {s}"))
+        sync()
+        flat_s = time.perf_counter() - t0
+        launches = counted("entry (a) train_flat", {K4: S * flat_kw["sweeps"]})
+        records[K4]["launches_mp_train"] = launches[K4]
+        last = flat.reports[-1][1]
+        print(f"entry (a) train_flat, {N} atoms x {A} taps, {n} samples, {S} steps, batch {B}, "
+              f"{flat_kw['sweeps']} sweeps: {flat_s:.1f} s (host clock, reports included); SNR "
+              f"{flat.initial_snr_db:.3f} -> {last:.3f} dB; launches {launches}; peak memory "
+              f"{peak_gib(dev)}")
+        if not last > flat.initial_snr_db:
+            fail(f"entry (a): the SNR did not rise ({flat.initial_snr_db:.3f} -> {last:.3f} dB)")
+        sig, dd = torch.from_numpy(sig_np).to(dev), torch.from_numpy(d_np).to(dev)
+        # the learning step's encode as dictionary_learning_step calls it on the card; the
+        # CPU's side comes from the CPU's process (flat_cpu.pt)
+        flat_card = (sparse_code_fast(sig, dd / torch.linalg.vector_norm(dd, dim=-1, keepdim=True),
+                                      n_steps=S, block=block, fused=on_card,
+                                      block_argmax=on_card),
+                     dictionary_learning_step(sig, dd, n_steps=S))
+        sweep_ms = 1e3 * S * B / flat.reports[-1][2]
+        d_t = flat.learned
+        traced_step("entry (a) train_flat sweep",
+                    lambda: dictionary_learning_step(sig, d_t, n_steps=S), sweep_ms, dev, sync)
+        print(f"entry (a) took {time.perf_counter() - t_part:.1f} s")
+
+        # (b) the multiband trainer
+        t_part = time.perf_counter()
+        mb_kw = dict(widths, sweeps=cfg["multiband_sweeps"])
+        if mb_kw["sweeps"] < widths["sweeps"]:
+            print(f"entry (b): cut to {mb_kw['sweeps']} sweeps of the script's "
+                  f"{widths['sweeps']}")
+        mb_out = work / "multiband"
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        mb = mt.train_multiband(str(mb_out), **mb_kw, device=dev,
+                                log=lambda s: print(f"entry (b) {s}"))
+        sync()
+        mb_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        if any(v for k, v in launches.items() if k != K4) or (on_card and not launches[K4]):
+            fail(f"entry (b) train_multiband: launches {launches}, expected the cluster step "
+                 "kernel's alone")
+        records[K4]["launches_mp_train_multiband"] = launches[K4]
+        model = mb.learned
+        x = next(iter(AudioIterator(B, n, normalize=True, seed=2, device=dev)))
+        bands = fft_frequency_decompose(x, model.min_size)
+        per_band = {}
+        for size, band in model.bands.items():
+            geom = fast_geometry(size, A, learning_block(A))
+            gate = fused_step_applicable(size, A, geom.block, geom.pad, N, dev)
+            kernels.reset_launches()
+            band.encode(bands[size], S)
+            sync()
+            per_band[size] = (gate, kernels.LAUNCHES[K4])
+        print(f"entry (b) train_multiband, bands {list(model.bands)}: {mb_kw['sweeps']} sweeps in "
+              f"{mb_s:.1f} s (host clock); SNR {mb.initial_snr_db:.3f} -> {mb.reports[-1][1]:.3f} "
+              f"dB; launches {launches}; by band (passes the fused gate, cluster step kernel "
+              "launches of one encode): "
+              + ", ".join(f"{s}: ({g}, {k})" for s, (g, k) in per_band.items()))
+        if on_card and not any(k for _, k in per_band.values()):
+            fail("entry (b): no band launched the cluster step kernel")
+        loaded = mt.multiband_model(N, A, n, dev)
+        loaded.load(str(mb_out))
+        for size, band in model.bands.items():
+            if not torch.equal(loaded.bands[size].d, band.d):
+                fail(f"entry (b): band {size} does not load back bit for bit")
+        print(f"entry (b) store({mb_out.name}) then load: every band's dictionary bit for bit; "
+              f"(b) took {time.perf_counter() - t_part:.1f} s")
+        del mb, model, loaded, bands
+
+        # (c) the rate report, the card's side
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rep = cr.rate_report(str(rate_run), str(work / "rate_card"), walk=True,
+                             noise=rate_noise.to(dev), device=dev, log=lambda s: None, **r)
+        sync()
+        rate_ms = (time.perf_counter() - t0) * 1e3
+        launches = counted("entry (c) rate_report", {})
+        print(f"entry (c) rate_report at 2^{r['n_samples_log2']} samples, {r['n_events']} events, "
+              f"hidden {r['hidden']}, context {r['context_dim']}, refine {r['refine']}, walk over "
+              f"{rep['walk']['n_windows']} windows: {rate_ms:.0f} ms (host clock); launches "
+              f"{launches}")
+        for preset, row in rep["presets"].items():
+            w = rep["walk"]["presets"][preset]
+            print(f"entry (c) {preset}: {row['kbps']:.3f} kbps, wire SNR "
+                  f"{row['wire_first_half_snr_db']:.3f} dB, refined "
+                  f"{row['refined_first_half_snr_db']:.3f} dB; walk {w['events_total']} events, "
+                  f"{w['kbps_fixed']:.3f} kbps fixed, {w['kbps_entropy_times']:.3f} with "
+                  f"entropy-coded times ({w['time_bits_per_event_entropy']:.2f} bits an event), "
+                  f"SNR {w['wire_full_snr_db']:.3f} dB, LSD {w['wire_full_lsd_db']:.3f} dB, PIF "
+                  f"{w['wire_full_pif_dist']:.4f}")
+
+        # (d) the quality run
+        t_part = time.perf_counter()
+        qdir = work / "quality"
+        K = q["iterations"]
+        print(f"entry (d): cut to {K} steps of the script's 2000 ({q['timing_steps']} timing steps "
+              f"each way of its 100, evals every {q['eval_every']} and streaming evals every "
+              f"{q['stream_eval_every']} steps of its 250 and 1000)")
+        kernels.reset_launches()
+        peak_reset(dev)
+        t0 = time.perf_counter()
+        qa = sq.run_siam_quality(str(qdir), tiny=cfg["tiny"], stream=batches[:K], device=dev,
+                                 log=lambda s: print(f"entry (d) {s}"), **q)
+        sync()
+        first_loss = qa.step_losses[0][1]
+        q_s = time.perf_counter() - t0
+        launches = counted("entry (d) run_siam_quality", {})
+        metrics = json.loads((qdir / "metrics.json").read_text())
+        keys = {"config", "init_s", "first_step_s", "ms_per_step_synced", "ms_per_step_pipelined",
+                "eval", "losses"}
+        ev_keys = {"step", "holdout_snr_db", "holdout_lsd_db", "recon_rms"}
+        if not keys <= set(metrics) or not metrics["eval"] or not all(
+                ev_keys <= set(e) for e in metrics["eval"]):
+            fail(f"entry (d): metrics.json lacks keys scripts/report.py reads: {sorted(metrics)}")
+        if not any("streaming_snr_db" in e for e in metrics["eval"]):
+            fail("entry (d): no streaming eval in metrics.json")
+        print(f"entry (d) run_siam_quality at {qn} samples, {q_sz['n_events']} events, batch 2, "
+              f"STFT {q_sz['window']}/{q_sz['step']}: {K} steps in {q_s:.1f} s (host clock, evals "
+              f"included); {metrics['ms_per_step_synced']} ms a step synced, "
+              f"{metrics['ms_per_step_pipelined']} pipelined; {len(metrics['eval'])} evals; "
+              f"launches {launches}; peak memory {peak_gib(dev)}; metrics.json holds report.py's "
+              "keys")
+        # the resume: the last checkpoint restored bit for bit, its next step against the
+        # uninterrupted run's own next step on the same batch and noise
+        qb = sq.run_siam_quality(str(qdir), tiny=cfg["tiny"], resume=True, stream=batches[K:],
+                                 device=dev, log=lambda s: None, **dict(q, iterations=K + 1))
+        step_b, params_b, opt_b = qb.resumed
+        params_a, opt_a = qa.run.trainer.snapshot()
+        same = all(torch.equal(x, y) for x, y in zip(params_a, params_b))
+        same &= all(torch.equal(x, y) for x, y in zip(
+            (opt_a.count, *opt_a.mu, *opt_a.nu), (opt_b.count, *opt_b.mu, *opt_b.nu)))
+        loss_a = float(qa.run.step(K, batches[K].to(dev)))
+        (i_b, loss_b), = qb.step_losses
+        rel = abs(loss_b - loss_a) / abs(loss_a)
+        print(f"entry (d) resume from the step-{step_b} checkpoint: parameters and Adam's state "
+              f"{'bit for bit' if same else 'DIFFER'}; step {i_b} loss {loss_b:.7g} against the "
+              f"uninterrupted run's {loss_a:.7g} ({rel:.2e}, gate {tol['resume']:g})")
+        if not same or i_b != K or rel > tol["resume"]:
+            fail("entry (d): the resume does not continue the run")
+        traced_step("entry (d) run_siam_quality", lambda: qa.run.step(K + 1, batches[0].to(dev)),
+                    metrics["ms_per_step_synced"], dev, sync)
+        tb = torch.from_numpy(synthetic_audio(2**13, seed=5, sustained=True)).reshape(1, 1, -1)
+        tn = draw_noise(sq.quality_model(tiny=True, device=cpu)[0], (4, 1),
+                        torch.Generator().manual_seed(3))
+        settings = LossSettings(512, 256, 1e-3, 10.0)
+
+        def tiny_loss(m, d, dt):
+            b = tb.to(d, dt)
+            return sq.siam_quality_loss(m, settings, tn.to(d, dt), 2000.0,
+                                        b * fade_tail(2**13, device=d).to(dt), b,
+                                        torch.sum(b[..., :2**12] ** 2))[0]
+
+        card_against_cpu("entry (d) siam_quality's loss at --tiny (attn floor 0.01, leak 0.1, "
+                         "waveform weight 2000, gain refit 1e-3, gain_reg 10)", one_step_both(
+            lambda d: sq.quality_model(tiny=True, device=d, attn_floor=0.01, attn_leak=0.1,
+                                       switch_bias_init=1.0)[0], tiny_loss, dev),
+            dev, tol["loss"], tol["gradients64"])
+        del qa, qb
+        print(f"entry (d) took {time.perf_counter() - t_part:.1f} s")
+
+        # (e) the host plumbing
+        demo = sorted(str(p) for p in (work / "cache" / "demo_audio").glob("*.wav"))
+        if not native_available():
+            fail("entry (e): the native loader does not build from mptpu_torch/native")
+        kw = dict(batch_size=4, n_samples=8192, step_size=64, normalize=True, seed=11,
+                  n_threads=1)
+        runs = []
+        for _ in range(2):
+            loader = NativeAudioLoader(demo, **kw)
+            try:
+                runs.append(np.stack([next(loader) for _ in range(3)]))
+            finally:
+                loader.close()
+        check = work / "check.wav"
+        write_wav(str(check), synthetic_audio(4096, seed=3), 22050)
+        loader = NativeAudioLoader([str(check)], batch_size=1, n_samples=4096, step_size=4096)
+        one = next(loader)[0]
+        loader.close()
+        y, _ = read_wav(str(check))
+        reader_err = float(np.abs(one[: len(y)] - y).max())
+        if not np.array_equal(*runs) or reader_err > 2e-4:
+            fail(f"entry (e): native loader runs differ or its reader is {reader_err:.2e} off")
+        s1, s2 = (fresh_segment_stream(2, 4096, seed_base=777) for _ in range(2))
+        fresh_same = all(np.array_equal(next(s1), next(s2)) for _ in range(2))
+        s1.close()
+        s2.close()
+        seg = get_audio_segment(f"file://{demo[0]}", 22050, 1000, 4096)
+        file_same = np.array_equal(seg, read_wav(demo[0])[0][1000:5096])
+        stored = remote.store_trained_weights_remotely("entry", str(rate_run / "ema_best.pkl"))
+        back = remote.load_trained_weights_for_inference("entry", str(work / "pulled.pkl"))
+        remote_same = (back is not None and Path(back).read_bytes()
+                       == (rate_run / "ema_best.pkl").read_bytes())
+        print(f"entry (e) native loader (built from mptpu_torch/native): two loaders, seed 11, "
+              f"{'equal' if runs and np.array_equal(*runs) else 'DIFFER'}; reader check "
+              f"{reader_err:.1e}; fresh_segment_stream deterministic: {fresh_same}; "
+              f"get_audio_segment over file:// equal to the reader: {file_same}; remote store "
+              f"round trip ({Path(stored).name}): {remote_same}")
+        if not (fresh_same and file_same and remote_same):
+            fail("entry (e): a host plumbing check failed")
+        sig = torch.from_numpy(sig_np).to(dev)
+        d2 = torch.from_numpy(d_np).to(dev)
+        d2 = d2 / torch.linalg.vector_norm(d2, dim=-1, keepdim=True)
+
+        def chain():
+            return sparse_code_fast(sig, d2, n_steps=S, block=block, fused=on_card,
+                                    block_argmax=on_card)
+
+        chain_ms = timed(chain, 3, dev)
+        with profile.trace(str(work / "trace")) as path:
+            ev = chain()
+            sync()
+        events = json.loads(Path(path).read_text())["traceEvents"]
+        k4_events = [e for e in events if e.get("cat") == "kernel"
+                     and "fused_step_pipelined_kernel" in e.get("name", "")]
+        geom = fast_geometry(n, A, block)
+        c_bytes, c_flops = step_traffic(dict(n_atoms=N, atom_size=A), geom, ev.positions,
+                                        chain=True)
+        util = profile.utilization(chain_ms / 1e3, c_flops, c_bytes, peak_flops=peaks[1],
+                                   peak_bytes_per_s=peaks[0])
+        print(f"entry (e) profile.trace around one encode of the learning path ({S} steps, batch "
+              f"{B}, {N} x {A}, block {block}): {len(k4_events)} device events of the cluster step "
+              f"kernel's {S} launches in {Path(path).name}; utilization of the encode against the "
+              f"step kernel's bound traffic ({c_bytes / 1e6:.1f} MB): {util}")
+        if on_card and not k4_events:
+            fail("entry (e): the trace holds no device event of the cluster step kernel")
+
+        # the CPU's sides of (a), (c) and (d)
+        t_part = time.perf_counter()
+        cpu_proc.wait(timeout=900)
+        print(f"entry: waited {time.perf_counter() - t_part:.1f} s for the CPU's process")
+        if cpu_proc.returncode != 0:
+            fail(f"entry: the CPU's side failed:\n{(work / 'cpu_side.log').read_text()[-3000:]}")
+        flat_cpu = torch.load(work / "flat_cpu.pt")
+        assert_events("entry (a) the learning encode, card against CPU", flat_card[0],
+                      flat_cpu["events"])
+        d_err = max_err([(flat_card[1].cpu(), flat_cpu["learned"])])
+        print(f"entry (a) one sweep card against CPU on a planted signal (the CPU's sweep took "
+              f"{flat_cpu['seconds']:.1f} s): events identical, values within {VALUE_TOL}, "
+              f"learned dictionary max abs err {d_err:.2e} (gate {tol['dictionary']:g})")
+        if d_err > tol["dictionary"]:
+            fail(f"entry (a): the learned dictionary is {d_err:.2e} off the CPU's")
+        cpu_rep = json.loads((work / "rate_cpu.json").read_text())
+        cpu_q = json.loads((work / "quality_cpu.json").read_text())
+        lsd_tol = tol["db"] + 2 * lsd_resolution(
+            cr.walk_target(torch.from_numpy(cr.segment(2 ** r["n_samples_log2"])).reshape(1, 1, -1),
+                           2 ** r["n_samples_log2"]),
+            work / "rate_card" / "recon_wire_walk_f16.wav", 512 if cfg["rate_config"] else 2048,
+            256)
+        worst = {"db": 0.0, "lsd": 0.0, "pif": 0.0}
+
+        def compare(card, host, path=""):
+            for k, h in host.items():
+                g = card[k]
+                if isinstance(h, dict):
+                    compare(g, h, f"{path}{k}.")
+                elif k.endswith("lsd_db"):
+                    worst["lsd"] = max(worst["lsd"], abs(g - h))
+                    if abs(g - h) > lsd_tol:
+                        fail(f"entry (c) {path}{k}: {g} on the card, {h} on the CPU")
+                elif k.endswith("_db"):
+                    worst["db"] = max(worst["db"], abs(g - h))
+                    if abs(g - h) > tol["db"]:
+                        fail(f"entry (c) {path}{k}: {g} on the card, {h} on the CPU")
+                elif k.endswith("pif_dist"):
+                    worst["pif"] = max(worst["pif"], abs(g - h) / abs(h))
+                    if abs(g - h) > tol["pif"] * abs(h):
+                        fail(f"entry (c) {path}{k}: {g} on the card, {h} on the CPU")
+                elif k != "ckpt" and g != h:
+                    fail(f"entry (c) {path}{k}: {g} on the card, {h} on the CPU")
+
+        compare(rep, cpu_rep)
+        print(f"entry (c) rate_report card against CPU (the CPU's report took "
+              f"{cpu_q['rate_s']:.1f} s): counts, bytes, kbps and entropy bits equal; SNR within "
+              f"{worst['db']:.2e} dB (gate {tol['db']:g}), LSD within {worst['lsd']:.2e} dB (gate "
+              f"{lsd_tol:.3f}: 0.01 and twice the metric's float32 resolution on the card's walk "
+              f"decode), PIF within {worst['pif']:.2e} of it (gate {tol['pif']:g})")
+        loss0 = cpu_q["loss0"]
+        rel = abs(first_loss - loss0) / abs(loss0)
+        print(f"entry (d) first step's float32 loss {first_loss:.7g} on the card, {loss0:.7g} on "
+              f"the CPU ({rel:.2e}, gate {tol['loss']:g}; the CPU's forward took "
+              f"{cpu_q['loss_s']:.1f} s)")
+        if rel > tol["loss"]:
+            fail("entry (d): the first step's loss is off the CPU's")
+        print(f"entry: the phase took {time.perf_counter() - t_phase:.1f} s (host clock)")
+    finally:
+        if cpu_proc is not None and cpu_proc.poll() is None:
+            cpu_proc.kill()
+            cpu_proc.wait()
+        for key, v in saved.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
+        tmp.cleanup()
+
+
 def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM, ssm=SSM,
-        siam_train=SIAM_TRAIN, models=MODELS, longtail=LONGTAIL, perceptual=PERCEPTUAL, zoo=ZOO):
-    """Phases 2-13 on device ``dev``; returns the kernels' records."""
+        siam_train=SIAM_TRAIN, models=MODELS, longtail=LONGTAIL, perceptual=PERCEPTUAL, zoo=ZOO,
+        entry=ENTRY):
+    """Phases 2-14 on device ``dev``; returns the kernels' records."""
     import torch
     import torch.nn.functional as F
 
@@ -4797,6 +5292,8 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM, ssm=SSM,
 
     zoo_phase(dev, zoo, sync)
 
+    entry_points_phase(dev, entry, peaks, sync, records)
+
     # ---- phase 5: per-kernel times
     fm, bm, res = encode_state(sig_b, d2_b, geom)
     windows = res[:, tail_idx].contiguous()
@@ -4930,6 +5427,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from mptpu_torch import kernels, parity_mode
+    from mptpu_torch.utils.profile import device_peaks
 
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4937,7 +5435,7 @@ def main() -> int:
     ).stdout.strip()
     print(smi)
     kind = torch.cuda.get_device_name(0)
-    peaks = next((v for k, v in PEAKS.items() if k in kind), PEAKS["H100"])
+    peaks = device_peaks(kind)
     print(f"peaks used for bounds: {peaks[0] / 1e12:.2f} TB/s, {peaks[1] / 1e12:.0f} TFLOP/s f32")
 
     t0 = time.perf_counter()

@@ -1,8 +1,10 @@
 """Paths from the environment or a ``.env`` file (counterpart of
 ``Config.audio_path``, ``Config.impulse_response_path`` and
-``Config.cache_path`` in ``mptpu/config/dotenv.py``, as module functions
-over the same variables: ``AUDIO_PATH``, ``IMPULSE_RESPONSE_PATH``,
-``MPTPU_CACHE``).
+``Config.s3_bucket``, ``Config.port`` and ``Config.cache_path`` in
+``mptpu/config/dotenv.py``, as module functions over the same variables:
+``AUDIO_PATH``, ``IMPULSE_RESPONSE_PATH``, ``S3_BUCKET``, ``PORT``,
+``MPTPU_CACHE``; :class:`Config` holds them as static methods, so that
+``mptpu``'s call sites read the same).
 
 ``mptpu`` copies ``.env`` into ``os.environ`` once per process, keeping
 variables already set; here the file is read at each call and nothing is
@@ -47,9 +49,30 @@ def impulse_response_path() -> Optional[str]:
     return _setting("IMPULSE_RESPONSE_PATH")
 
 
+def s3_bucket() -> Optional[str]:
+    """The bucket of the remote weight store, ``S3_BUCKET``, or None."""
+    return _setting("S3_BUCKET")
+
+
+def port(default: int = 9999) -> int:
+    """The dashboard's port, ``PORT``, else ``default``."""
+    value = _setting("PORT")
+    return int(default if value is None else value)
+
+
 def cache_path() -> str:
     """The directory of the KV stores and the demo corpus, ``MPTPU_CACHE``,
     else ``~/.mptpu_cache``; created when missing."""
     path = _setting("MPTPU_CACHE") or os.path.join(os.path.expanduser("~"), ".mptpu_cache")
     os.makedirs(path, exist_ok=True)
     return path
+
+
+class Config:
+    """The settings as ``mptpu``'s ``Config`` exposes them."""
+
+    audio_path = staticmethod(audio_path)
+    impulse_response_path = staticmethod(impulse_response_path)
+    s3_bucket = staticmethod(s3_bucket)
+    port = staticmethod(port)
+    cache_path = staticmethod(cache_path)

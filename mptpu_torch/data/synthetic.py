@@ -1,7 +1,7 @@
 """Synthetic audio when no dataset is mounted (counterpart of
-``synthetic_audio``, ``ensure_demo_dataset`` and ``streaming_windows`` in
-``mptpu/data/synthetic.py``): sums of decaying harmonic tones and noise
-transients, in numpy. The same seed gives the same float32 samples as
+``synthetic_audio``, ``ensure_demo_dataset``, ``fresh_segment_stream`` and
+``streaming_windows`` in ``mptpu/data/synthetic.py``): sums of decaying
+harmonic tones and noise transients, in numpy. The same seed gives the same float32 samples as
 ``mptpu``, draw for draw, and the same WAV corpus, so both packages fit
 and score one target.
 """
@@ -9,6 +9,9 @@ and score one target.
 from __future__ import annotations
 
 import os
+import queue
+import threading
+from typing import Iterator
 
 import numpy as np
 
@@ -101,6 +104,54 @@ def ensure_demo_dataset(directory: str, n_files: int = 4, seconds: float = 12.0,
                                       sustained=dense),
                       samplerate)
     return directory
+
+
+def fresh_segment_stream(batch_size: int, n_samples: int, samplerate: int = 22050,
+                         seed_base: int = 1_000_000, prefetch: int = 2) -> Iterator[np.ndarray]:
+    """An endless stream of batches of freshly synthesised dense segments,
+    float32 ``(batch_size, 1, n_samples)``, each example's largest
+    magnitude 1: example ``i`` of batch ``b`` is ``synthetic_audio(n_samples,
+    n_events=max(4, 8 a second), seed=seed_base + b * batch_size + i,
+    sustained=True)``, so that no seed repeats, and the default base lies
+    clear of every ``ensure_demo_dataset`` corpus.
+
+    A daemon thread synthesises up to ``prefetch`` batches ahead of the
+    consumer; it stops when the generator is closed or collected, and an
+    error of its own is raised in the consumer."""
+    n_events = max(4, int(n_samples / samplerate * 8))
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))
+    stop = threading.Event()
+
+    def put(item) -> None:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
+    def synth_loop() -> None:
+        b = 0
+        try:
+            while not stop.is_set():
+                put(np.stack([
+                    synthetic_audio(n_samples, samplerate, n_events=n_events,
+                                    seed=seed_base + b * batch_size + i, sustained=True)
+                    for i in range(batch_size)
+                ])[:, None, :])
+                b += 1
+        except Exception as e:   # handed to the consumer, which raises it
+            put(e)
+
+    threading.Thread(target=synth_loop, daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if isinstance(item, Exception):
+                raise item
+            yield item
+    finally:
+        stop.set()
 
 
 def streaming_windows(seg: np.ndarray, n_samples: int, n_win: int) -> np.ndarray:

@@ -132,6 +132,14 @@ def mix(signals: List[torch.Tensor], weights: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.stack(signals, dim=-1) * weights, dim=-1)
 
 
+class Mixer:
+    """:func:`mix` as ``mptpu``'s ``Mixer`` object: ``Mixer()(signals,
+    mix)``."""
+
+    def __call__(self, signals: List[torch.Tensor], mix_weights: torch.Tensor) -> torch.Tensor:
+        return mix(signals, mix_weights)
+
+
 class SplattingEventGenerator(nn.Module, EventGenerator):
     """The splatting decoder. ``forward(params, times, noise=None,
     generator=None)``: ``params`` match ``shape_spec``; the noise is drawn

@@ -4,12 +4,14 @@ trainers in ``scripts/``; only the ported names)."""
 from .audiooperator import (AudioOperator, band_pos_encode, envelope_loss,
                             generate_training_batch, train_audiooperator,
                             training_batch_from_draws)
+from .codec_rate import rate_report
 from .energy_overfit import EnergyOverfit, EnergyLoss, energy_step, overfit_energy
 from .funcsong import FuncSong, count_parameters, song_pos_encoding, train_funcsong
 from .inference import SIAMCodec, SIAMEncoding, quantize_events
 from .instrument import (Note, PlayableInstrument, build_instrument, damped_sequential,
                          demo_phrase, repl)
 from .mp_model import MatchingPursuit
+from .mp_train import train_flat, train_multiband
 from .multiresolution import BandEncoder, ConvBandDecoder, DecoderShell, EncoderShell
 from .phaseinvariance import (lsd_db, reconstruct_with_transform, run_phaseinvariance,
                               snr_db)
@@ -22,6 +24,7 @@ from .siam import (Reservoir, SIAMModel, fade_tail, make_iterative_fn, make_rand
                    make_streaming_fn, refine_event_alignment, refit_event_gains, siam_transform,
                    streaming_encode)
 from .siam_overfit import SIAMOverfitStep, overfit_siam
+from .siam_quality import run_siam_quality
 from .siam_train import train_and_monitor
 from .songsplat import (SongSplatModel, SongSplatRun, render_song, songsplat_loss, songsplat_step,
                         train_songsplat)
@@ -50,4 +53,4 @@ __all__ = ["OverfitHierarchicalEvents", "SplatFit", "overfit_splat", "splat_loss
            "reconstruct_with_transform", "run_phaseinvariance", "snr_db",
            "OverfitResonanceStack", "ResonanceLoss", "overfit_resonance", "synthesize_texture",
            "texture_featurizer", "EnergyOverfit", "EnergyLoss", "energy_step",
-           "overfit_energy"]
+           "overfit_energy", "rate_report", "train_flat", "train_multiband", "run_siam_quality"]

@@ -182,7 +182,10 @@ class SIAMOverfitStep:
 
     ``step(noise, wave_w, grad_clip, lr_mult, f_tgt, tgt, tgt_e_half)``
     returns (loss, wave, gnorm, ok, raw_tail) as tensors on the device and
-    reads nothing on the host. ``reconstruct`` is the eval decode."""
+    reads nothing on the host. ``reconstruct`` is the eval decode. The
+    loss is ``loss_fn``, :func:`siam_overfit_loss` here."""
+
+    loss_fn = staticmethod(siam_overfit_loss)
 
     def __init__(self, model: SIAMModel, settings: LossSettings, lr: float = 3e-4,
                  b1: float = 0.9, b2: float = 0.999, trust_ratio: float = 0.0, ema: float = 0.0,
@@ -203,8 +206,8 @@ class SIAMOverfitStep:
         autograd runs the backward after the forward's own ``no_tf32``
         blocks have closed, so both run inside one here."""
         with no_tf32():
-            loss, aux = siam_overfit_loss(self.model, self.settings, noise, wave_w, f_tgt, tgt,
-                                          tgt_e_half, generator)
+            loss, aux = self.loss_fn(self.model, self.settings, noise, wave_w, f_tgt, tgt,
+                                     tgt_e_half, generator)
             grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
         return loss.detach(), aux, grads
@@ -303,6 +306,41 @@ class _LaggedRead:
         return self.host.tolist()
 
 
+class ArtifactSink:
+    """Which of a run's files should be kept beyond the run
+    (``--commit-artifacts``' rule, without ``git``): at each call
+    ``metrics.json`` and ``storm.log`` when it exists, and ``paths`` (the
+    best checkpoints) at most once every ``MIN_INTERVAL_S`` seconds of
+    ``clock`` unless ``force``. The list goes to ``on_artifacts``; an error
+    there is logged, never raised, so that bookkeeping cannot end a run."""
+
+    MIN_INTERVAL_S = 900.0
+
+    def __init__(self, out: str, on_artifacts: Optional[Callable[[List[str]], None]],
+                 clock: Callable[[], float] = time.time, log: Callable[[str], None] = print):
+        self.out = out
+        self.on_artifacts = on_artifacts
+        self.clock = clock
+        self.log = log
+        self.last = 0.0
+
+    def __call__(self, paths: Sequence[str] = (), force: bool = False) -> None:
+        if self.on_artifacts is None:
+            return
+        now = self.clock()
+        to_add = [os.path.join(self.out, "metrics.json")]
+        slog = os.path.join(self.out, "storm.log")
+        if os.path.exists(slog):
+            to_add.append(slog)
+        if paths and (force or now - self.last > self.MIN_INTERVAL_S):
+            to_add += [p for p in paths if os.path.exists(p)]
+            self.last = now
+        try:
+            self.on_artifacts(to_add)
+        except Exception as e:   # a run's bookkeeping must not end it
+            self.log(f"on_artifacts failed: {e!r}")
+
+
 # scripts/siam_overfit.py's flags that sw6 ran with (its metrics.json "config")
 SW6 = dict(lr=3e-4, attn_floor=0.01, attn_leak=0.1, waveform_weight=2000.0, fixed_noise=True,
            switch_bias_init=1.0, selection_leak=0.02, selection_floor=0.02, eval_regress_db=2.0,
@@ -341,10 +379,10 @@ def overfit_siam(
     lr_recover_steps: int = 250, spectral_filter: bool = False, grad_anatomy_from: int = 0,
     holdout_eval: bool = False, init_from: Optional[str] = None,
     noise: Optional[torch.Tensor] = None, device=None, log: Callable[[str], None] = print,
+    on_artifacts: Optional[Callable[[List[str]], None]] = None,
 ) -> SIAMOverfitResult:
     """``scripts/siam_overfit.py``'s ``main`` as a function: its flags are
-    the keywords (``--commit-artifacts`` is left out: no run of the port
-    commits; the stall watchdog is the caller's). The port's own:
+    the keywords (the stall watchdog is the caller's). The port's own:
 
     - ``noise``: the fixed draw (n_events, 1, 1, noise size) that
       ``fixed_noise`` uses for every step, eval and walk; drawn from a
@@ -354,7 +392,10 @@ def overfit_siam(
       come from a generator seeded 0 (``init_from`` and ``resume`` load
       over them);
     - ``device``: ``cuda`` unless ``"cpu"`` is asked for; ``log``: where
-      the script's lines go.
+      the script's lines go;
+    - ``on_artifacts``: ``--commit-artifacts`` without ``git``: called with
+      the files to keep (:class:`ArtifactSink`'s rule) at every write of
+      ``metrics.json``, at each new best checkpoint and at the end.
 
     Writes ``metrics.json``, ``target.wav``, the best WAVs,
     ``ema_best.pkl`` and ``walk_best.pkl`` (params as ``mptpu``'s flax
@@ -480,9 +521,12 @@ def _overfit(a: dict, dev: torch.device) -> SIAMOverfitResult:
         except (IOError, ValueError):
             pass
 
+    keep = ArtifactSink(out, a["on_artifacts"], log=log)
+
     def write_metrics():
         with open(os.path.join(out, "metrics.json"), "w") as f:
             dump_json(metrics, f, indent=1)
+        keep()
 
     result = SIAMOverfitResult(trainer, metrics)
     run_start = time.perf_counter()
@@ -717,6 +761,7 @@ def _overfit(a: dict, dev: torch.device) -> SIAMOverfitResult:
                         best_ema = e_sel
                         save_checkpoint(os.path.join(out, "ema_best.pkl"),
                                         trainer.flax_variables(trainer.ema), None, i)
+                        keep([os.path.join(out, "ema_best.pkl")])
                     if e_sel > best_artifact:
                         best_artifact = e_sel
                         write_wav(os.path.join(out, "recon_best.wav"),
@@ -800,6 +845,7 @@ def _overfit(a: dict, dev: torch.device) -> SIAMOverfitResult:
                     best_walk = wentry["refit_full_snr_db"]
                     save_checkpoint(os.path.join(out, "walk_best.pkl"),
                                     trainer.flax_variables(walk_params), None, i)
+                    keep([os.path.join(out, "walk_best.pkl")])
                     write_wav(os.path.join(out, "recon_walk_best.wav"),
                               w_refit[0, 0].cpu().numpy(), 22050)
             if i % ckpt.every == 0:
@@ -828,6 +874,7 @@ def _overfit(a: dict, dev: torch.device) -> SIAMOverfitResult:
     if a["align_refine"]:
         metrics["best_aligned_first_half_snr_db"] = round(float(best_aligned), 3)
     write_metrics()
+    keep([os.path.join(out, n) for n in ("ema_best.pkl", "walk_best.pkl")], force=True)
     if metrics.get("aborted"):
         log(f"aborted: best first-half SNR {best_snr:.2f} dB")
     else:

@@ -1,6 +1,7 @@
 """A static HTML article (counterpart of ``conjure_article``,
 ``AudioComponent`` and ``ImageComponent`` in ``mptpu/obs/article.py``, which
-imports no JAX; the port keeps its own copy): audio as base64 WAV data
+imports no JAX; the port keeps its own copy), with ``TextComponent`` and
+``CompositeComponent``): audio as base64 WAV data
 URLs, a 2-D array as an inline SVG strip, so that the file needs no other.
 """
 
@@ -8,7 +9,7 @@ from __future__ import annotations
 
 import base64
 import html
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List
 
 import numpy as np
@@ -86,6 +87,20 @@ class TextComponent:
             elif s:
                 lines.append(f"<p>{html.escape(s)}</p>")
         return "\n".join(lines)
+
+
+@dataclass
+class CompositeComponent:
+    """Its components rendered in order inside one ``<section>``, under
+    ``title`` when there is one."""
+
+    components: List = field(default_factory=list)
+    title: str = ""
+
+    def render(self) -> str:
+        inner = "\n".join(c.render() for c in self.components)
+        t = f"<h3>{html.escape(self.title)}</h3>" if self.title else ""
+        return f"<section>{t}{inner}</section>"
 
 
 _STYLE = """body{max-width:900px;margin:2em auto;font-family:Georgia,serif;

@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 
 import torch
 from torch import nn
@@ -63,6 +64,20 @@ def set_selection_floor(floor: float) -> None:
     """Set the additive floor on 'relu' selection weights (0 = none)."""
     global RELU_SELECTION_FLOOR
     RELU_SELECTION_FLOOR = float(floor)
+
+
+@contextmanager
+def selection_knobs(leak: float, floor: float):
+    """The 'relu' selections' leak and floor set for the block, whatever
+    they were, and restored after it."""
+    saved = (RELU_SELECTION_LEAK, RELU_SELECTION_FLOOR)
+    set_selection_leak(leak)
+    set_selection_floor(floor)
+    try:
+        yield
+    finally:
+        set_selection_leak(saved[0])
+        set_selection_floor(saved[1])
 
 
 def select_items(

@@ -24,3 +24,8 @@ def sanitize(obj: Any) -> Any:
 def dump_json(obj: Any, fp: IO[str], **kwargs: Any) -> None:
     """``json.dump`` that always writes RFC 8259-valid output."""
     json.dump(sanitize(obj), fp, allow_nan=False, **kwargs)
+
+
+def dumps_json(obj: Any, **kwargs: Any) -> str:
+    """``json.dumps`` that always gives RFC 8259-valid text."""
+    return json.dumps(sanitize(obj), allow_nan=False, **kwargs)

@@ -11,25 +11,32 @@ import wave
 import numpy as np
 
 
-def read_wav(path: str, mono: bool = True) -> tuple[np.ndarray, int]:
-    """(float32 samples in [-1, 1], samplerate)."""
+def read_wav(path, mono: bool = True) -> tuple[np.ndarray, int]:
+    """(float32 samples in [-1, 1], samplerate) of the file at ``path``, or
+    of an open binary file."""
+    if hasattr(path, "read"):
+        return _read_wav(path, getattr(path, "name", "<file>"), mono)
     with open(path, "rb") as f:
-        riff = f.read(12)
-        if riff[:4] != b"RIFF" or riff[8:12] != b"WAVE":
-            raise ValueError(f"{path} is not a RIFF/WAVE file")
-        fmt = data = None
-        while True:
-            header = f.read(8)
-            if len(header) < 8:
-                break
-            chunk_id, size = struct.unpack("<4sI", header)
-            payload = f.read(size)
-            if size % 2:
-                f.read(1)
-            if chunk_id == b"fmt ":
-                fmt = payload
-            elif chunk_id == b"data":
-                data = payload
+        return _read_wav(f, path, mono)
+
+
+def _read_wav(f, path, mono: bool) -> tuple[np.ndarray, int]:
+    riff = f.read(12)
+    if riff[:4] != b"RIFF" or riff[8:12] != b"WAVE":
+        raise ValueError(f"{path} is not a RIFF/WAVE file")
+    fmt = data = None
+    while True:
+        header = f.read(8)
+        if len(header) < 8:
+            break
+        chunk_id, size = struct.unpack("<4sI", header)
+        payload = f.read(size)
+        if size % 2:
+            f.read(1)
+        if chunk_id == b"fmt ":
+            fmt = payload
+        elif chunk_id == b"data":
+            data = payload
     if fmt is None or data is None:
         raise ValueError(f"{path}: missing fmt/data chunk")
     audio_format, channels, samplerate, _, _, bits = struct.unpack("<HHIIHH", fmt[:16])
