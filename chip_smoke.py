@@ -13,7 +13,10 @@ operator) and the remaining layers; then the perceptual stack, the
 remaining losses and the resonance chain with their three entry points
 (resonance overfit, phase invariance, texture synthesis); then the rest of
 the generator zoo, the energy-instrument overfit and the GAN and
-experiment-runner trainers.
+experiment-runner trainers; then the last entry points (the MP trainers,
+the rate report, the quality run, the host plumbing) and the last scripts
+(the SIAM checkpoint evaluations, the report pages, the splat's article,
+the preset worker, the experiment runner, the multiband trajectory).
 
     python3 chip_smoke.py
 
@@ -192,6 +195,26 @@ Phases, each printing lines (any failure exits non-zero):
    forward; ``make_gan_steps`` (one step of each player, float64, card
    against CPU) and ``BaseExperimentRunner`` with checkpoints and
    ``resume``; no launch of the six kernels;
+14. (after phase 13, before phase 5's times) the last entry points
+   (ROADMAP A9b; ``ENTRY``, ``entry_points_phase``);
+15. (after phase 14, before phase 5's times) the last scripts (ROADMAP
+   A9c) at ``SCRIPTS``' widths, each part with its host ms, launches, one
+   unit traced (busy and idle share) and peak memory: (a) the four SIAM
+   checkpoint evaluations (refinement, residual split, streaming walk,
+   held-out anatomy) at sw6's widths on seed-0 parameters, card against
+   CPU (frames, shifts and lags identical, channels and gains within 1e-4
+   of their largest, SNRs within 0.01 dB, LSDs within 0.01 dB and twice
+   their float32 resolution, the residual split within 1e-4 of the
+   residual's energy), and on sw6's committed checkpoint when the tree
+   holds it (its first window within 0.01 dB of the CPU's reading); (b) the
+   splat fit at scripts/splat.py's defaults for 100 iterations, its
+   perturbed render and article; (c) the codec's page, the overfit page of
+   (a)'s run, the song-splat and generalization pages, card against CPU;
+   (d) the worker over 8 presets at full width (embeddings within 1e-4);
+   (e) the experiment runner, 20 iterations of the template, the loss
+   falling; (f) the multiband trajectory at e_2024_4_24's configuration,
+   iterations 0 to 3 within 0.01 and 0.05 dB of ``mptpu``'s, the cluster
+   step kernel's launches by band; the CPU's sides in three processes;
 5. each kernel's time beside its plain version's, its bound and, for the
    boundary kernel, one ``torch.matmul`` computing the same product; the two
    step kernels per step from a chain of launches, with and without
@@ -199,7 +222,7 @@ Phases, each printing lines (any failure exits non-zero):
    multiband band beside the whole-encode kernel doing the same steps in one
    launch; the two whole-encode kernels and the cluster step kernel by
    cluster size, with the clusters the card holds at once beside each;
-14. a ``kernels`` JSON line, then the result line
+16. a ``kernels`` JSON line, then the result line
     ``{"ok": true, "device": {...}}``.
 
 It needs CUDA and the ``mptpu_torch`` package beside it, and exits with
@@ -611,6 +634,50 @@ ENTRY_SMALL = dict(tiny=True, flat_sweeps=4, multiband_sweeps=2,
 # adds twice its float32 resolution on the decode, lsd_resolution); loss: the first step's
 # float32 loss; resume: the step after a resume against the uninterrupted run's
 ENTRY_TOL = dict(dictionary=1e-4, db=0.01, pif=1e-4, loss=1e-4, gradients64=1e-8, resume=1e-5)
+# Phase 15, the last scripts (ROADMAP A9c), at the scripts' own widths: (a) the four SIAM
+# evaluations at sw6's (2^17 samples, 32 events, hidden 128, context 32, STFT 2048/256; widths
+# None keeps overfit_refine_eval.WIDTHS), the walk with the gain re-fit and alignment refinement
+# over one window's segment, sw6's checkpoint when the tree holds it (sw6: its directory under
+# the checkout, ``python3 chip_smoke.py --sw6 DIR`` names another); (b) scripts/splat.py's
+# defaults (2^16 samples, 64 events, context 16), 100 of its 3,000 iterations; (c) the codec's page
+# at SIAMModel()'s defaults; (d) the worker at SIAMModel()'s defaults (tiny=False), 8 presets;
+# (e) the template (2^15 samples, 16 events) for 20 iterations; (f) e_2024_4_24's multiband
+# configuration (multiband_parity.CONFIG), iterations 0 to 3. SCRIPTS_SMALL is the CPU
+# rehearsal's.
+SCRIPTS = dict(widths=None, walk=dict(gain_refit=1e-3, align_refine=256),
+               sw6="trained_weights/siam_overfit_full_sw6",
+               splat=dict(n_samples=2**16, n_events=64, event_dim=16, iterations=100),
+               report_tiny=False, worker=dict(tiny=False, presets=8),
+               experiment=dict(iterations=20, n_samples=None),
+               multiband=dict(iterations=3, config={}, reference=None), cpu_threads=2)
+# mptpu's trajectory at that configuration on JAX-CPU: ours_snr_db of
+# trained_weights/multiband_parity.json, re-derived by
+# tests/reference/multiband_parity_trajectory.py
+# (5.5533, 10.6801, 12.6307, 13.6713 dB unrounded; the port on the CPU within 4e-7 dB of them)
+MULTIBAND_PARITY_REFERENCE = [5.553, 10.68, 12.631, 13.671]
+# the same at the rehearsal's configuration (multiband_parity_trajectory.py --small --iterations 2)
+MULTIBAND_PARITY_SMALL = [2.8398, 6.0099, 7.5779]
+SCRIPTS["multiband"]["reference"] = MULTIBAND_PARITY_REFERENCE
+SCRIPTS_SMALL = dict(widths=dict(n_samples=2**13, n_events=4, hidden=32, context_dim=16),
+                     walk=dict(gain_refit=1e-3, align_refine=64), sw6=None,
+                     splat=dict(n_samples=2**12, n_events=4, event_dim=8, iterations=12),
+                     report_tiny=True, worker=dict(tiny=True, presets=4),
+                     experiment=dict(iterations=3, n_samples=2**12),
+                     multiband=dict(iterations=2, config=dict(n_samples=2048, n_atoms=16,
+                                                              atom_size=32, steps=8,
+                                                              sizes=(512, 1024, 2048)),
+                                    reference=MULTIBAND_PARITY_SMALL), cpu_threads=1)
+# sw6's first window on the CPU, both packages with mptpu's noise (codec_rate.py's raw, f16 wire
+# and refined first-half SNR; tests/test_torch_siam_checkpoint.py:97)
+SW6_FIRST_WINDOW = dict(raw=0.1319, wire=0.1320, refined=6.5568)
+# the walk over sw6's own segment with the flags it trained under (its metrics.json config line)
+SW6_WALK = dict(selection_floor=0.02, audio_events=12, stream_windows=3, gain_refit=1e-3,
+                align_refine=256, pristine_windows=True)
+# db: SNR (an LSD adds twice its float32 resolution on the decode); channels: the evaluations'
+# channels and refit gains, of their largest; residual: the residual split, of the residual's and
+# the target's energy; parity0 / parity: the multiband SNR before / after learning
+SCRIPTS_TOL = dict(db=0.01, channels=1e-4, residual=1e-4, embedding=1e-4, pif=1e-4,
+                   parity0=0.01, parity=0.05)
 # the probe's kinds: label -> (kind, programmatic)
 PROBE_KINDS = {"grid": ("grid", False), "grid chained": ("grid", True), "fori": ("fori", False)}
 HOLD_CYCLES = 20_000_000   # about 10 ms of device spinning ahead of a timed run
@@ -4393,19 +4460,24 @@ class _DictInput:
         return self.shell({512: a, 1024: b})
 
 
-def lsd_resolution(target, wav_path, window: int, step: int) -> float:
-    """|float32 - float64| of the LSD between ``target`` (1, 1, n) and the
-    decode written at ``wav_path``: the metric's own float32 resolution on
-    that decode (bins at the level of rounding move ``20 log10(|X| +
-    1e-8)`` by decibels)."""
+def lsd_resolution(target, recon, window: int, step: int, device="cpu") -> float:
+    """|float32 - float64| of the LSD between ``target`` (1, 1, n) and a
+    decode (a tensor, or the path of its WAV), over the shorter of the two
+    from the start, computed on ``device``: the metric's own float32
+    resolution on that decode there (bins at the level of rounding move
+    ``20 log10(|X| + 1e-8)`` by decibels, and each FFT library rounds its
+    own way)."""
     import torch
 
     from mptpu_torch.models.siam_overfit import lsd_db
     from mptpu_torch.utils.wav import read_wav
 
-    recon, _ = read_wav(str(wav_path))
-    t = target.detach().cpu().reshape(1, 1, -1)[..., : recon.shape[-1]]
-    r = torch.from_numpy(recon.copy()).reshape(1, 1, -1)
+    if not isinstance(recon, torch.Tensor):
+        recon = torch.from_numpy(read_wav(str(recon))[0].copy())
+    recon = recon.detach().to(device).reshape(-1)
+    n = min(recon.shape[-1], target.shape[-1])
+    t = target.detach().to(device).reshape(1, 1, -1)[..., :n]
+    r = recon[:n].reshape(1, 1, -1).float()
     return abs(float(lsd_db(t, r, window, step)) - float(lsd_db(t.double(), r.double(), window,
                                                                   step)))
 
@@ -4867,10 +4939,692 @@ def entry_points_phase(dev, cfg, peaks, sync, records):
         tmp.cleanup()
 
 
+def preset_audio(preset, n_samples, dev):
+    """Phase 15's render of a worker preset on ``dev``: an ``ssm`` preset
+    through the port's ``render_preset`` there; any other one from a CPU
+    generator seeded 0, so that the card and the CPU embed the same noise."""
+    import torch
+
+    from mptpu_torch.models import worker as wk
+
+    if preset.synth == "ssm":
+        return wk.render_preset(preset, n_samples, device=dev)
+    return wk.render_preset(preset, n_samples, generator=torch.Generator().manual_seed(0),
+                            device="cpu").to(dev)
+
+
+def worker_presets(n: int) -> list:
+    """``n`` presets: ``ssm`` synths of assorted sizes, every fourth a noise
+    synth."""
+    out = []
+    for i in range(n):
+        if i % 4 == 3:
+            out.append({"preset_id": f"p{i:02d}_noise", "synth": "noise", "params": {}})
+        else:
+            out.append({"preset_id": f"p{i:02d}_ssm", "synth": "ssm",
+                        "params": {"control_plane_dim": 8 + 4 * (i % 3), "window_size": 64,
+                                   "state_dim": 16 + 8 * (i % 2)}})
+    return out
+
+
+def page_parts(html: str):
+    """(the page's text with the audio data, the SVG drawings and the
+    numbers taken out; its numbers; its decoded audio; its SVG drawings)."""
+    import base64
+    import io
+    import re
+    import wave
+
+    audio = re.findall(r"data:audio/wav;base64,([A-Za-z0-9+/=]+)", html)
+    svgs = re.findall(r"<svg.*?</svg>", html, re.S)
+    text = re.sub(r"<svg.*?</svg>", "<svg/>",
+                  re.sub(r"data:audio/wav;base64,[A-Za-z0-9+/=]+", "data:audio", html), flags=re.S)
+    numbers = [float(x) for x in re.findall(r"-?\d+\.\d+", text)]
+    decoded = []
+    for b64 in audio:
+        with wave.open(io.BytesIO(base64.b64decode(b64))) as w:
+            decoded.append(np.frombuffer(w.readframes(w.getnframes()), dtype="<i2")
+                           .astype(np.float64) / 32767)
+    return re.sub(r"-?\d+\.\d+", "#", text), numbers, decoded, svgs
+
+
+def pages_match(label, card_html: str, cpu_html: str, number_tol: float) -> str:
+    """Fail unless the card's page is the CPU's: the same text, its numbers
+    within ``number_tol``, its audio within 2e-4 once decoded (16-bit PCM
+    of decodes within 1e-4), each spectrogram strip's cells in place and
+    within 2 of 255 in colour but for 1% of them, the event scatter's
+    coordinates within 0.5 of its 400 x 200; returns a summary."""
+    import re
+
+    gt, gn, ga, gs = page_parts(card_html)
+    wt, wn, wa, ws = page_parts(cpu_html)
+    if gt != wt or len(gn) != len(wn) or len(ga) != len(wa) or len(gs) != len(ws):
+        fail(f"{label}: the card's page is not the CPU's (text, numbers, audio or drawings)")
+    num_err = max((abs(a - b) for a, b in zip(gn, wn)), default=0.0)
+    audio_err = max((float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+                     for a, b in zip(ga, wa)), default=0.0)
+    rect = re.compile(r'<rect x="(\d+)" y="(\d+)" width="1" height="1" fill="rgb\((\d+),')
+    cells_off, coord_err = 0.0, 0.0
+    for g, w in zip(gs, ws):
+        if "<rect" in w:
+            gr = {(x, y): int(c) for x, y, c in rect.findall(g)}
+            wr = {(x, y): int(c) for x, y, c in rect.findall(w)}
+            off = len(set(gr) ^ set(wr)) + sum(abs(gr[k] - wr[k]) > 2 for k in set(gr) & set(wr))
+            cells_off = max(cells_off, off / max(1, len(wr)))
+        else:
+            a = np.asarray(re.findall(r"-?\d+\.\d+", g), float)
+            b = np.asarray(re.findall(r"-?\d+\.\d+", w), float)
+            coord_err = max(coord_err, float(np.abs(a - b).max()) if a.shape == b.shape
+                            else float("inf"))
+    if num_err > number_tol or audio_err > 2e-4 or cells_off > 0.01 or coord_err > 0.5:
+        fail(f"{label}: the card's page is off the CPU's (numbers {num_err:.2e}, audio "
+             f"{audio_err:.2e}, strip cells {cells_off:.3f}, scatter {coord_err:.2f})")
+    return (f"{len(gn)} numbers within {num_err:.2e} (gate {number_tol:g}), {len(ga)} audio "
+            f"within {audio_err:.2e}, {len(gs)} drawings (strip cells off {cells_off:.4f}, "
+            f"scatter within {coord_err:.2f})")
+
+
+def last_scripts_cpu_side(work: str, part: str, threads: int) -> None:
+    """Phase 15's CPU side, one ``part`` in a process of its own while the
+    card works: ``evals`` (the refinement report with the window's frames and
+    channels, the residual split, the anatomy), ``walk`` (the streaming
+    eval) on ``work``/run_cpu, or ``pages`` (the codec's page, the worker,
+    the generalization page); the reports into ``work``/cpu_<part>.json."""
+    import torch
+
+    from mptpu_torch.models import holdout_anatomy as ha
+    from mptpu_torch.models import overfit_diag as od
+    from mptpu_torch.models import overfit_refine_eval as ore
+    from mptpu_torch.models import overfit_stream_eval as ose
+    from mptpu_torch.models import report as rp
+    from mptpu_torch.models import report_generalization as rg
+    from mptpu_torch.models import worker as wk
+
+    torch.set_num_threads(threads)
+    work = Path(work)
+    inp = torch.load(work / "cpu_inputs.pt")
+    run = str(work / "run_cpu")
+    quiet = lambda s: None   # noqa: E731
+    t0 = time.perf_counter()
+    out = {}
+    if part == "evals":
+        keep = {}
+        out["refine"] = ore.refine_eval(run, run, noise=inp["noise"], device="cpu",
+                                        widths=inp["widths"], keep=keep, log=quiet)
+        torch.save(dict(channels=keep["channels"], frames=torch.argmax(keep["schedules"], -1)),
+                   work / "frames_cpu.pt")
+        out["diag"] = od.diag(run, run, noise=inp["noise"], device="cpu", widths=inp["widths"],
+                              log=quiet)
+        out["anatomy"] = ha.anatomy(run, str(work / "anatomy_cpu"),
+                                    holdout_dir=str(work / "holdout"), noise=inp["noise"],
+                                    device="cpu", log=quiet)
+    elif part == "walk":
+        out["stream"] = ose.stream_eval(run, run, noise=inp["noise"], device="cpu", log=quiet,
+                                        **inp["walk"])
+    else:
+        rp.make_report(None, str(work / "report_cpu.html"), tiny=inp["report_tiny"],
+                       streaming=True, audio_path=inp["audio_path"], seed=0,
+                       metrics_path=inp["metrics_path"], noise=inp["report_noise"],
+                       stream_noise=inp["report_stream_noise"], device="cpu", log=quiet)
+        chunks = wk.run_worker(str(work / "inbox_cpu"), str(work / "outbox_cpu"), once=True,
+                               tiny=inp["worker_tiny"], proj=inp["proj"], noise=inp["worker_noise"],
+                               render=lambda p, n: preset_audio(p, n, "cpu"), device="cpu",
+                               log=quiet)
+        out["worker"] = {c.preset_id: c.embedding for c in chunks}
+        rg.make_generalization_report(inp["general_runs"], str(work / "general_cpu.html"),
+                                      log=quiet)
+    out["seconds"] = time.perf_counter() - t0
+    (work / f"cpu_{part}.json").write_text(json.dumps(out, default=str))
+
+
+def last_scripts_phase(dev, cfg, peaks, sync, records):
+    """Phase 15, the last scripts (ROADMAP A9c) through the calls a user
+    makes, launch counts set to 0 before each part and read after it, each
+    part with its host ms, launches, one unit traced (busy and idle share)
+    and peak memory: (a) the four SIAM evaluations (refinement, residual
+    split, streaming walk, held-out anatomy) at the scripts' widths on a run
+    directory of seed-0 parameters, card against CPU, and on sw6's committed
+    checkpoint when the tree holds it (its first window against the CPU's
+    reading); (b) the splat fit, its perturbed render and article; (c) the
+    codec's page, the overfit page of (a)'s run, the song-splat page and the
+    generalization page; (d) the worker over an inbox of presets, card
+    against CPU; (e) the dated-experiment runner; (f) the multiband learning
+    trajectory against ``mptpu``'s, with the cluster step kernel's launches
+    by band. The CPU's sides of (a), (c) and (d) run in three processes of
+    their own meanwhile."""
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from mptpu_torch import convert, kernels
+    from mptpu_torch.data import get_one_audio_segment
+    from mptpu_torch.device import no_tf32
+    from mptpu_torch.data.synthetic import ensure_demo_dataset, synthetic_audio
+    from mptpu_torch.models import codec_rate as cr
+    from mptpu_torch.models import experiment as ex
+    from mptpu_torch.models import holdout_anatomy as ha
+    from mptpu_torch.models import multiband_parity as mbp
+    from mptpu_torch.models import overfit_diag as od
+    from mptpu_torch.models import overfit_refine_eval as ore
+    from mptpu_torch.models import overfit_stream_eval as ose
+    from mptpu_torch.models import report as rp
+    from mptpu_torch.models import report_generalization as rg
+    from mptpu_torch.models import worker as wk
+    from mptpu_torch.models.siam import draw_noise
+    from mptpu_torch.models.splat_overfit import overfit_splat, splat_article
+    from mptpu_torch.sparse import BandSpec, quantize
+    from mptpu_torch.train.checkpoint import save_checkpoint
+    from mptpu_torch.utils import jax_random
+    from mptpu_torch.utils.wav import write_wav
+
+    cpu = torch.device("cpu")
+    on_card = dev.type == "cuda"
+    tol = SCRIPTS_TOL
+    K4 = "cuda_fused_step_pipelined"
+    quiet = lambda s: None   # noqa: E731
+    widths = dict(ore.WIDTHS, **(cfg["widths"] or {}))
+    n, E = widths["n_samples"], widths["n_events"]
+    tmp = tempfile.TemporaryDirectory()
+    work = Path(tmp.name)
+    saved = {k: os.environ.get(k) for k in ("MPTPU_CACHE", "AUDIO_PATH")}
+    os.environ.pop("AUDIO_PATH", None)
+    os.environ["MPTPU_CACHE"] = str(work / "cache")
+    procs = {}
+
+    def counted(label, want):
+        launches = dict(kernels.LAUNCHES)
+        expected = {k: (want.get(k, 0) if on_card else 0) for k in launches}
+        if launches != expected:
+            fail(f"{label}: launches {launches}, expected {expected}")
+        return launches
+
+    def part_line(label, t0, launches, unit_label, unit):
+        """The part's host ms, launches and peak memory; one ``unit`` of it
+        timed, then traced for its busy and idle share."""
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        print(f"{label}: {host_ms:.1f} ms (host clock); launches {launches}; peak memory "
+              f"{peak_gib(dev)}")
+        t1 = time.perf_counter()
+        unit()
+        sync()
+        traced_step(f"{label}, {unit_label}", unit, 1e3 * (time.perf_counter() - t1), dev, sync)
+
+    try:
+        t_phase = time.perf_counter()
+        # ---- the inputs both sides read
+        run = work / "run"
+        run.mkdir()
+        model = ore.eval_model(widths, cpu, switch_bias_init=1.0)
+        save_checkpoint(str(run / "ckpt_000000000.pkl"), convert.module_to_flax(model), None, 0)
+        config = (f"overfit 1 segment seed 3, n_samples 2^{n.bit_length() - 1}, {E} events, STFT "
+                  f"{widths['window']}/{widths['step']}, attn_floor 0.01, attn_leak 0.1, "
+                  "switch_clamp 20.0, residual_clamp 4.0, selection_leak 0.02, selection_floor "
+                  "0.02, switch_bias_init 1.0, fixed_noise True, spectral_skip False, "
+                  "spectral_filter False")
+        (run / "metrics.json").write_text(json.dumps({
+            "config": config, "best_first_half_snr_db": 0.0,
+            "eval": [{"step": 0, "first_half_snr_db": 0.0, "full_snr_db": 0.0, "sched_max": 0.0,
+                      "alive_events": E, "rollbacks": 0}]}))
+        write_wav(str(run / "target.wav"), cr.segment(n, 3)[:n], 22050)
+        noise = draw_noise(model, (E, 1), torch.Generator().manual_seed(42))
+        del model
+        for copy in ("run_card", "run_cpu"):
+            shutil.copytree(run, work / copy)
+        ensure_demo_dataset(str(work / "holdout"), n_files=2, seconds=24.0, dense=True,
+                            seed_offset=1000)
+        demo = ensure_demo_dataset(str(work / "cache" / "demo_audio"))
+        walk_flags = dict(n_samples_log2=n.bit_length() - 1, n_events=E, hidden=widths["hidden"],
+                          context_dim=widths["context_dim"], **cfg["walk"])
+        report_model = rp.report_model(cfg["report_tiny"], cpu)
+        report_noise = draw_noise(report_model, (report_model.n_events, 1),
+                                  torch.Generator().manual_seed(1))
+        report_stream_noise = draw_noise(report_model, (8, report_model.n_events, 1),
+                                         torch.Generator().manual_seed(2))
+        del report_model
+        metrics_path = work / "quality_metrics.json"
+        metrics_path.write_text(json.dumps({
+            "config": "quality", "init_s": 1.5, "first_step_s": 2.25, "ms_per_step_synced": 1668.6,
+            "ms_per_step_pipelined": 1334.9,
+            "eval": [{"step": s, "holdout_snr_db": 0.01 * s, "holdout_lsd_db": 30.0 - 0.1 * s,
+                      "recon_rms": 0.001 * s} for s in (4, 8, 12)]}))
+        general_runs = []
+        for i, label in enumerate(("fixed corpus", "fresh corpus")):
+            d = work / "general" / f"run{i}"
+            d.mkdir(parents=True)
+            rng = np.random.default_rng(i)
+            d.joinpath("metrics.json").write_text(json.dumps({
+                "config": "quality",
+                "eval": [{"step": s, "first_half_lsd_db": float(30 - 1e-4 * s + rng.normal()),
+                          "holdout_snr_db": float(rng.normal()),
+                          "holdout_lsd_db": float(25 + rng.normal())}
+                         for s in range(1000, 11000, 1000)],
+                "losses": [[s, float(100 / (1 + s) + rng.random())]
+                           for s in range(0, 10000, 100)] if i == 0 else []}))
+            general_runs.append((str(d), label))
+        worker_model = wk.worker_model(cfg["worker"]["tiny"], device=cpu)
+        width = worker_model.context_dim * worker_model.n_events
+        proj = torch.randn((width, 128), generator=torch.Generator().manual_seed(3)) / width**0.5
+        worker_noise = draw_noise(worker_model, (worker_model.n_events, 1),
+                                  torch.Generator().manual_seed(4))
+        del worker_model
+        presets = worker_presets(cfg["worker"]["presets"])
+        for box in ("inbox_card", "inbox_cpu"):
+            (work / box).mkdir()
+            for p in presets:
+                (work / box / f"{p['preset_id']}.json").write_text(json.dumps(p))
+        torch.save(dict(noise=noise, widths=cfg["widths"], walk=walk_flags,
+                        report_tiny=cfg["report_tiny"], audio_path=demo,
+                        metrics_path=str(metrics_path), report_noise=report_noise,
+                        report_stream_noise=report_stream_noise, worker_tiny=cfg["worker"]["tiny"],
+                        proj=proj, worker_noise=worker_noise, general_runs=general_runs),
+                   work / "cpu_inputs.pt")
+        for part in ("evals", "walk", "pages"):
+            env = dict(os.environ, MPTPU_CACHE=str(work / f"cache_{part}"))
+            with open(work / f"cpu_{part}.log", "w") as log:   # a file: a pipe could fill
+                procs[part] = subprocess.Popen(
+                    [sys.executable, "-c", "import sys, chip_smoke; "
+                     "chip_smoke.last_scripts_cpu_side(sys.argv[1], sys.argv[2], "
+                     "int(sys.argv[3]))", str(work), part,
+                     str(cfg["cpu_threads"])], cwd=str(ROOT), env=env, stdout=log,
+                    stderr=subprocess.STDOUT)
+        print(f"scripts: the CPU's sides of (a), (c) and (d) started in three processes of their "
+              f"own ({cfg['cpu_threads']} threads each)")
+
+        # ---- (a) the four evaluations on the seed-0 run, the card's side
+        card_run = str(work / "run_card")
+        kernels.reset_launches()
+        peak_reset(dev)
+        t0 = time.perf_counter()
+        keep = {}
+        refine = ore.refine_eval(card_run, card_run, noise=noise, device=dev, widths=cfg["widths"],
+                                 keep=keep, log=quiet)
+        diag = od.diag(card_run, card_run, noise=noise, device=dev, widths=cfg["widths"], log=quiet)
+        stream = ose.stream_eval(card_run, card_run, noise=noise, device=dev, log=quiet,
+                                 **walk_flags)
+        anatomy = ha.anatomy(card_run, str(work / "anatomy_card"),
+                             holdout_dir=str(work / "holdout"), noise=noise, device=dev, log=quiet)
+        sync()
+        launches = counted("scripts (a) the four evaluations", {})
+        eval_model = ore.eval_model(widths, dev)
+        ore.load_into(eval_model, str(run / "ckpt_000000000.pkl"), quiet)
+        print(f"scripts (a) at {n} samples, {E} events, hidden {widths['hidden']}, context "
+              f"{widths['context_dim']}, STFT {widths['window']}/{widths['step']}, seed-0 "
+              f"parameters: refine raw / refit / aligned first-half SNR "
+              f"{refine['raw_first_half_snr_db']:.3f} / {refine['refit_first_half_snr_db']:.3f} / "
+              f"{refine['aligned_first_half_snr_db']:.3f} dB; residual: wave "
+              f"{diag['wave_snr_db']:.3f}, gain-adjusted {diag['gain_adjusted_snr_db']:.3f}, "
+              f"magnitude {diag['mag_spec_snr_db']:.3f} dB, {diag['alive_events']} alive; walk "
+              f"({walk_flags}) full SNR {stream['streaming_full_snr_db']:.3f}, refit "
+              f"{stream['refit_full_snr_db']:.3f} dB; anatomy as placed "
+              f"{anatomy['as_placed_snr_db']:.3f}, oracle gain / align / place "
+              f"{anatomy['oracle_gain_snr_db']:.3f} / {anatomy['oracle_align_snr_db']:.3f} / "
+              f"{anatomy['oracle_place_snr_db']:.3f} dB")
+
+        def forward():
+            with torch.no_grad(), no_tf32(), quantize.selection_knobs(0.02, 0.02):
+                ore.first_window(eval_model, 3, noise, 42)
+
+        part_line("scripts (a) the four evaluations", t0, launches, "one window's forward",
+                  forward)
+        del eval_model
+
+        # ---- (a) sw6's committed checkpoint, when the tree holds it
+        sw6 = ROOT / cfg["sw6"] if cfg["sw6"] else None
+        if sw6 is not None and (sw6 / "ema_best.pkl").exists():
+            t0 = time.perf_counter()
+            kernels.reset_launches()
+            noise42 = torch.from_numpy(jax_random.siam_event_noise(32, 8192))
+            ema = str(sw6 / "ema_best.pkl")
+            out = work / "sw6"
+            rate = cr.rate_report(str(sw6), str(out / "rate"), walk=False, noise=noise42,
+                                  device=dev, log=quiet)
+            got = dict(raw=rate["raw_first_half_snr_db"],
+                       wire=rate["presets"]["f16"]["wire_first_half_snr_db"],
+                       refined=rate["presets"]["f16"]["refined_first_half_snr_db"])
+            s_refine = ore.refine_eval(str(sw6), str(out), ckpt=ema, noise=noise42, device=dev,
+                                       log=quiet)
+            s_diag = od.diag(str(sw6), str(out), ckpt=ema, noise=noise42, device=dev, log=quiet)
+            s_stream = ose.stream_eval(str(sw6), str(out), noise=noise42, device=dev, log=quiet,
+                                       **SW6_WALK)
+            s_run = work / "sw6_run"
+            s_run.mkdir()
+            shutil.copyfile(ema, s_run / "ckpt_000000000.pkl")
+            shutil.copyfile(sw6 / "metrics.json", s_run / "metrics.json")
+            s_anat = ha.anatomy(str(s_run), str(out / "anatomy"), holdout_dir=str(work / "holdout"),
+                                noise=noise42, device=dev, log=quiet)
+            sync()
+            launches = counted("scripts (a) sw6", {})
+            print(f"scripts (a) sw6 ({sw6.relative_to(ROOT)}/ema_best.pkl) on the "
+                  f"card, codec_rate's first window: raw {got['raw']:.4f}, f16 wire "
+                  f"{got['wire']:.4f}, refined {got['refined']:.4f} dB against the CPU's "
+                  f"{SW6_FIRST_WINDOW} (gate {tol['db']:g} dB); launches {launches}")
+            print(f"scripts (a) sw6, the four evaluations on the card: refine (seed-3 segment of "
+                  f"{n} samples, not sw6's) raw / refit / aligned "
+                  f"{s_refine['raw_first_half_snr_db']:.3f} / "
+                  f"{s_refine['refit_first_half_snr_db']:.3f} / "
+                  f"{s_refine['aligned_first_half_snr_db']:.3f} dB; residual wave "
+                  f"{s_diag['wave_snr_db']:.3f}, magnitude {s_diag['mag_spec_snr_db']:.3f} dB, "
+                  f"{s_diag['alive_events']} alive; walk over sw6's segment ({SW6_WALK}): full "
+                  f"{s_stream['streaming_full_snr_db']:.3f}, refit "
+                  f"{s_stream['refit_full_snr_db']:.3f}, pristine "
+                  f"{s_stream['pristine_full_snr_db']:.3f} dB, PIF "
+                  f"{s_stream['refit_full_pif_dist']:.4f}; held-out anatomy as placed "
+                  f"{s_anat['as_placed_snr_db']:.3f}, oracle place "
+                  f"{s_anat['oracle_place_snr_db']:.3f} dB; {time.perf_counter() - t0:.1f} s")
+            off = {k: abs(got[k] - v) for k, v in SW6_FIRST_WINDOW.items()}
+            if max(off.values()) > tol["db"]:
+                fail(f"scripts (a) sw6: the card's first window is off the CPU's by {off}")
+        elif sw6 is not None:
+            print(f"scripts (a) sw6: {cfg['sw6']}/ema_best.pkl is absent from this tree: its "
+                  "trained SNRs on the card are not measured in this run")
+
+        # ---- (b) the splat, its perturbed render and article
+        s = cfg["splat"]
+        target = get_one_audio_segment(s["n_samples"], seed=0, device=cpu).reshape(-1)
+        kernels.reset_launches()
+        peak_reset(dev)
+        t0 = time.perf_counter()
+        fit = overfit_splat(target, n_events=s["n_events"], event_dim=s["event_dim"],
+                            n_iterations=s["iterations"], device=dev)
+        demo_out = splat_article(fit, target, str(work / "splat.html"))
+        sync()
+        launches = counted("scripts (b) splat", {})
+        losses = fit.losses
+        diff = float((demo_out.perturbed - demo_out.recon).abs().max())
+        finite = bool(torch.isfinite(demo_out.perturbed).all())
+        print(f"scripts (b) splat at {s['n_samples']} samples, {s['n_events']} events, context "
+              f"{s['event_dim']}: {s['iterations']} of the script's 3,000 iterations at "
+              f"{fit.steps_per_sec:.2f} steps/s; loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+              f"(first and last 10: {np.mean(losses[:10]):.4f} -> {np.mean(losses[-10:]):.4f}), "
+              f"{fit.skipped} skipped; perturbed render max abs {diff:.4f} off the "
+              f"reconstruction, finite {finite}; article {(work / 'splat.html').stat().st_size} "
+              "bytes")
+        if not (np.mean(losses[-10:]) < np.mean(losses[:10]) and fit.skipped == 0 and finite
+                and diff > 1e-3):
+            fail("scripts (b): the splat did not fit, or its perturbed render is not a change")
+        part_line("scripts (b) splat", t0, launches, "one render",
+                  lambda: fit.model(noise=torch.zeros((1, 1, s["n_samples"]), device=dev)))
+        del fit
+
+        # ---- (c) the pages
+        kernels.reset_launches()
+        peak_reset(dev)
+        t0 = time.perf_counter()
+        rp.make_report(None, str(work / "report_card.html"), tiny=cfg["report_tiny"],
+                       streaming=True, audio_path=demo, seed=0, metrics_path=str(metrics_path),
+                       noise=report_noise, stream_noise=report_stream_noise, device=dev, log=quiet)
+        shutil.copyfile(work / "run_card" / "recon_aligned_best.wav",
+                        work / "run_card" / "recon_best.wav")
+        rp.make_overfit_report(card_run, str(work / "overfit_card.html"), log=quiet)
+        song = work / "song"
+        song.mkdir()
+        write_wav(str(song / "song_target.wav"), synthetic_audio(2**17, seed=30), 22050)
+        write_wav(str(song / "song_recon.wav"), 0.3 * synthetic_audio(2**17, seed=31), 22050)
+        (song / "song_eval.json").write_text(json.dumps({
+            "covered_snr_db": 0.012, "covered_lsd_db": 38.824, "trained_steps": 2000,
+            "refit_ridge": 1e-4}))
+        rp.make_songsplat_report(str(song), str(work / "song.html"), log=quiet)
+        rg.make_generalization_report(general_runs, str(work / "general_card.html"), log=quiet)
+        sync()
+        launches = counted("scripts (c) pages", {})
+        pages = ("report_card.html", "overfit_card.html", "song.html", "general_card.html")
+        sizes = {p: (work / p).stat().st_size for p in pages}
+        print(f"scripts (c) the pages written: {sizes} bytes")
+        part_line("scripts (c) pages", t0, launches, "the codec's page without the walk",
+                  lambda: rp.make_report(None, str(work / "again.html"), tiny=cfg["report_tiny"],
+                                         audio_path=demo, seed=0, noise=report_noise, device=dev,
+                                         log=quiet))
+
+        # ---- (d) the worker
+        kernels.reset_launches()
+        peak_reset(dev)
+        t0 = time.perf_counter()
+        per = []
+        chunks = wk.run_worker(str(work / "inbox_card"), str(work / "outbox_card"), once=True,
+                               tiny=cfg["worker"]["tiny"], proj=proj, noise=worker_noise,
+                               render=lambda p, m: preset_audio(p, m, dev), device=dev,
+                               log=lambda line: per.append(float(line.rsplit("(", 1)[1][:-4])))
+        sync()
+        launches = counted("scripts (d) worker", {})
+        print(f"scripts (d) worker ({'--tiny' if cfg['worker']['tiny'] else 'SIAMModel()'}'s "
+              f"widths), {len(chunks)} presets: {np.mean(per):.1f} ms a preset (host clock; "
+              f"{min(per):.1f} to {max(per):.1f}, the first with its set-up)")
+        if len(chunks) != len(presets) or os.listdir(work / "inbox_card"):
+            fail("scripts (d): the worker left presets in its inbox")
+        w_model = wk.worker_model(cfg["worker"]["tiny"], device=dev)
+        embed = wk.make_embedder(w_model, proj=proj, noise=worker_noise)
+        audio = preset_audio(wk.SynthPreset(**presets[0]), w_model.n_samples, dev)
+        part_line("scripts (d) worker", t0, launches, "one embedding", lambda: embed(audio))
+        del w_model, embed
+
+        # ---- (e) the experiment runner
+        e = cfg["experiment"]
+        exps = work / "experiments"
+        kernels.reset_launches()
+        peak_reset(dev)
+        t0 = time.perf_counter()
+        path = ex.new_experiment(str(exps))
+        if e["n_samples"]:
+            src = Path(path, "experiment.py")
+            src.write_text(src.read_text().replace("n_samples = 2 ** 15",
+                                                   f"n_samples = {e['n_samples']}"))
+        listed = ex.list_experiments(str(exps))
+        _, exp = ex.run_current(str(exps), e["iterations"], device=dev, log=quiet)
+        sync()
+        launches = counted("scripts (e) experiment", {})
+        print(f"scripts (e) experiment {listed}: {e['iterations']} iterations of the template, "
+              f"loss {exp.losses[0]:.4f} -> {exp.losses[-1]:.4f}")
+        if not (np.isfinite(exp.losses).all() and exp.losses[-1] < exp.losses[0]):
+            fail("scripts (e): the template's loss did not fall")
+        part_line("scripts (e) experiment", t0, launches, "two iterations",
+                  lambda: ex.run_current(str(exps), 2, device=dev, log=quiet))
+
+        # ---- (f) the multiband trajectory, the cluster step kernel's launches by band
+        f = cfg["multiband"]
+        by_band = {}
+        real_learn, real_encode = BandSpec.learn, BandSpec.encode
+
+        def by_size(fn):
+            def wrapped(self, *a, **k):
+                before = kernels.LAUNCHES[K4]
+                out = fn(self, *a, **k)
+                by_band[self.size] = by_band.get(self.size, 0) + kernels.LAUNCHES[K4] - before
+                return out
+            return wrapped
+
+        kernels.reset_launches()
+        peak_reset(dev)
+        t0 = time.perf_counter()
+        BandSpec.learn, BandSpec.encode = by_size(real_learn), by_size(real_encode)
+        try:
+            traj = mbp.parity_trajectory(f["iterations"], device=dev, reference=None, log=quiet,
+                                         sync=sync, **f["config"])
+        finally:
+            BandSpec.learn, BandSpec.encode = real_learn, real_encode
+        sync()
+        launches = dict(kernels.LAUNCHES)
+        if any(v for k, v in launches.items() if k != K4) or (on_card and not launches[K4]):
+            fail(f"scripts (f): launches {launches}, expected the cluster step kernel's alone")
+        records[K4]["launches_multiband_parity"] = launches[K4]
+        ref = f["reference"]
+        rows = traj["rows"]
+        worst = 0.0
+        for row, want in zip(rows, ref, strict=True):
+            gate = tol["parity0"] if row["iteration"] == 0 else tol["parity"]
+            err = abs(row["ours_snr_db"] - want)
+            worst = max(worst, err)
+            print(f"scripts (f) iteration {row['iteration']}: SNR {row['ours_snr_db']:.4f} dB "
+                  f"against mptpu's {want} ({err:.4f}, gate {gate}); learn "
+                  f"{row['ours_learn_s']:.3f} s")
+            if err > gate:
+                fail(f"scripts (f): iteration {row['iteration']} is {err:.4f} dB off mptpu's")
+        learn_s = [r["ours_learn_s"] for r in rows[1:]]
+        print(f"scripts (f) multiband trajectory ({traj['config']}): {len(rows) - 1} learn "
+              f"iterations, {np.mean(learn_s):.3f} s each ({min(learn_s):.3f} to "
+              f"{max(learn_s):.3f}; mptpu's recorded CPU run 2.9 to 19.1 s), worst {worst:.4f} dB; "
+              f"cluster step kernel launches {launches[K4]}, by band: "
+              + ", ".join(f"{s}: {k}" for s, k in sorted(by_band.items())))
+        batch = torch.from_numpy(mbp.parity_batch(traj["model"].n_samples,
+                                                  f["config"].get("batch_size", 2))
+                                 .astype(np.float32)).to(dev)
+        steps = f["config"].get("steps", mbp.CONFIG["steps"])
+        part_line("scripts (f) multiband", t0, launches, "one learn iteration",
+                  lambda: traj["model"].learn(batch, steps))
+
+        # ---- the CPU's sides
+        t_wait = time.perf_counter()
+        for part, proc in procs.items():
+            proc.wait(timeout=900)
+            if proc.returncode != 0:
+                fail(f"scripts: the CPU's {part} side failed:\n"
+                     f"{(work / f'cpu_{part}.log').read_text()[-3000:]}")
+        print(f"scripts: waited {time.perf_counter() - t_wait:.1f} s for the CPU's processes")
+        host = {p: json.loads((work / f"cpu_{p}.json").read_text()) for p in procs}
+        # an LSD is held at 0.01 dB and twice its float32 resolution on the card's own decode
+        t = torch.from_numpy(cr.segment(n, 3)).reshape(1, 1, -1)
+        first, whole = t[..., : n // 2], cr.walk_target(t, n)
+        channels = keep["channels"].cpu()
+        gains = torch.tensor(refine["refit_gains"])[None]
+        decodes = {
+            ("refine", "raw_first_half_lsd_db"): (first, channels.sum(1)),
+            ("refine", "refit_first_half_lsd_db"): (first, torch.einsum("be,ben->bn", gains,
+                                                                       channels)),
+            ("refine", "aligned_first_half_lsd_db"): (
+                first, work / "run_card" / "recon_aligned_best.wav"),
+            ("walk", "streaming_full_lsd_db"): (whole, work / "run_card" / "recon_streaming.wav"),
+            ("walk", "refit_full_lsd_db"): (whole, work / "run_card" / "recon_streaming_refit.wav"),
+            ("walk", "pristine_full_lsd_db"): (whole,
+                                               work / "run_card" / "recon_streaming_pristine.wav")}
+        # the float32 resolution of the LSD on either device, each FFT library rounding its own
+        # way; for the refinement's three decodes also the whole float32 pipeline's distance
+        # from float64 (the same evaluation with the model and the segment in float64)
+        refine64 = ore.refine_eval(card_run, str(work / "refine64"), noise=noise, device=dev,
+                                   widths=cfg["widths"], dtype=torch.float64, log=quiet)
+        resolution = {key: max([lsd_resolution(tgt, rec, widths["window"], widths["step"], d)
+                                for d in (cpu, dev)]
+                               + ([abs(refine[key[1]] - refine64[key[1]])]
+                                  if key[0] == "refine" else []))
+                      for key, (tgt, rec) in decodes.items()
+                      if isinstance(rec, torch.Tensor) or rec.exists()}
+        lsd_tol = {key: tol["db"] + 2 * res for key, res in resolution.items()}
+        worst = {"db": 0.0, "lsd": 0.0, "pif": 0.0}
+        off_gate, problems, lsd_lines = [], [], []
+
+        def db_pairs(label, card, host_rep):
+            for k, h in host_rep.items():
+                g = card[k]
+                if k.endswith("lsd_db"):
+                    worst["lsd"] = max(worst["lsd"], abs(g - h))
+                    gate = lsd_tol[(label, k)]
+                elif k.endswith("_db"):
+                    worst["db"] = max(worst["db"], abs(g - h))
+                    gate = tol["db"]
+                elif k.endswith("pif_dist"):
+                    worst["pif"] = max(worst["pif"], abs(g - h) / abs(h))
+                    gate = tol["pif"] * abs(h)
+                else:
+                    continue
+                if k.endswith("lsd_db"):
+                    lsd_lines.append(f"{label} {k} {g:.4f} / {h:.4f} / "
+                                     f"{resolution[(label, k)]:.4f} / {gate:.4f}")
+                if abs(g - h) > gate:
+                    off_gate.append(f"{label} {k}: {g} on the card, {h} on the CPU (gate "
+                                    f"{gate:.3g})")
+
+        db_pairs("refine", refine, host["evals"]["refine"])
+        db_pairs("diag", diag, host["evals"]["diag"])
+        db_pairs("walk", stream, host["walk"]["stream"])
+        db_pairs("anatomy", anatomy, host["evals"]["anatomy"])
+        print("scripts (a) LSDs, card / CPU / float32 resolution / gate (dB): "
+              + "; ".join(lsd_lines))
+        h_frames = torch.load(work / "frames_cpu.pt")
+        frames_same = torch.equal(torch.argmax(keep["schedules"], -1).cpu(), h_frames["frames"])
+        ch_err = max_err([(keep["channels"].cpu(), h_frames["channels"])]) / float(
+            h_frames["channels"].abs().max())
+        shifts_same = refine["align_shifts"] == host["evals"]["refine"]["align_shifts"]
+        g, h = np.asarray(refine["refit_gains"]), np.asarray(host["evals"]["refine"]["refit_gains"])
+        gain_err = float(np.abs(g - h).max() / np.abs(h).max())
+        hd = host["evals"]["diag"]
+        err_total = sum(q["err"] for q in hd["err_by_quartile"])
+        split_err = max(max(abs(a["err"] - b["err"]) / err_total,
+                            abs(a["tgt"] - b["tgt"]) / hd["target_energy_half"])
+                        for a, b in zip(diag["err_by_quartile"], hd["err_by_quartile"]))
+        energy_err = max(abs(a - b) for a, b in zip(
+            diag["event_energy_top8"] + diag["event_energy_bottom8"],
+            hd["event_energy_top8"] + hd["event_energy_bottom8"])) / hd["target_energy_half"]
+        ha_rows = host["evals"]["anatomy"]["events"]
+        lags_same = [r.get("lag") for r in anatomy["events"]] == [r.get("lag") for r in ha_rows]
+        rho_err = max((abs(a[k] - b[k]) for a, b in zip(anatomy["events"], ha_rows)
+                       for k in ("rho0", "rho_max", "rho_chance") if k in b), default=0.0)
+        same_counts = (diag["alive_events"] == hd["alive_events"] and anatomy["n_alive_events"]
+                       == host["evals"]["anatomy"]["n_alive_events"])
+        print(f"scripts (a) card against CPU (the CPU's sides took "
+              f"{host['evals']['seconds']:.1f} and {host['walk']['seconds']:.1f} s): frames "
+              f"{'identical' if frames_same else 'DIFFER'}, channels within {ch_err:.2e} of their "
+              f"largest (gate {tol['channels']:g}), alignment shifts "
+              f"{'identical' if shifts_same else 'DIFFER'}, refit gains within {gain_err:.2e}; "
+              f"SNRs within {worst['db']:.2e} dB (gate {tol['db']:g}), LSDs within "
+              f"{worst['lsd']:.2e} dB (gates {min(lsd_tol.values()):.3f} to "
+              f"{max(lsd_tol.values()):.3f}: 0.01 and twice the metric's float32 resolution on "
+              f"each of the card's decodes), PIF within "
+              f"{worst['pif']:.2e} of it (gate {tol['pif']:g}); the residual split within "
+              f"{split_err:.2e} of the residual's and "
+              f"the target's energy, event energies within {energy_err:.2e} (gate "
+              f"{tol['residual']:g}); anatomy lags {'identical' if lags_same else 'DIFFER'}, "
+              f"correlations within {rho_err:.1e} (gate 1e-3, four decimals); alive counts "
+              f"{'equal' if same_counts else 'DIFFER'}")
+        if not (frames_same and shifts_same and lags_same and same_counts) or max(
+                ch_err, gain_err) > tol["channels"] or max(split_err, energy_err) > tol[
+                "residual"] or rho_err > 1e-3 or off_gate:
+            problems.append("(a) the card's evaluations are off the CPU's: " + "; ".join(off_gate))
+        # (c) the pages against the CPU's: the overfit page from the CPU's evaluations
+        shutil.copyfile(work / "run_cpu" / "recon_aligned_best.wav",
+                        work / "run_cpu" / "recon_best.wav")
+        rp.make_overfit_report(str(work / "run_cpu"), str(work / "overfit_cpu.html"), log=quiet)
+        for label, card_page, cpu_page, number_tol in (
+                ("the codec's page", "report_card.html", "report_cpu.html", 0.0),
+                ("the overfit page", "overfit_card.html", "overfit_cpu.html", tol["db"] + 1e-3),
+                ("the generalization page", "general_card.html", "general_cpu.html", 0.0)):
+            try:
+                line = pages_match(f"scripts (c) {label}", (work / card_page).read_text(),
+                                   (work / cpu_page).read_text(), number_tol)
+            except AssertionError as e:
+                problems.append(str(e))
+                continue
+            print(f"scripts (c) {label}, card against CPU: {line}")
+        # (d) the embeddings
+        host_emb = host["pages"]["worker"]
+        emb_err = max(float(np.abs(np.asarray(c.embedding) - np.asarray(host_emb[c.preset_id]))
+                            .max() / np.abs(np.asarray(host_emb[c.preset_id])).max())
+                      for c in chunks)
+        print(f"scripts (d) the {len(chunks)} embeddings card against CPU: within {emb_err:.2e} "
+              f"of their largest (gate {tol['embedding']:g}; the CPU's pages and worker took "
+              f"{host['pages']['seconds']:.1f} s)")
+        if sorted(host_emb) != sorted(c.preset_id for c in chunks) or emb_err > tol["embedding"]:
+            problems.append("(d) the card's embeddings are off the CPU's")
+        print(f"scripts: the phase took {time.perf_counter() - t_phase:.1f} s (host clock)")
+        if problems:
+            fail("scripts: " + " | ".join(problems))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for key, v in saved.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
+        tmp.cleanup()
+
+
 def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM, ssm=SSM,
         siam_train=SIAM_TRAIN, models=MODELS, longtail=LONGTAIL, perceptual=PERCEPTUAL, zoo=ZOO,
-        entry=ENTRY):
-    """Phases 2-14 on device ``dev``; returns the kernels' records."""
+        entry=ENTRY, scripts=SCRIPTS):
+    """Phases 2-15 on device ``dev``; returns the kernels' records."""
     import torch
     import torch.nn.functional as F
 
@@ -5294,6 +6048,8 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM, ssm=SSM,
 
     entry_points_phase(dev, entry, peaks, sync, records)
 
+    last_scripts_phase(dev, scripts, peaks, sync, records)
+
     # ---- phase 5: per-kernel times
     fm, bm, res = encode_state(sig_b, d2_b, geom)
     windows = res[:, tail_idx].contiguous()
@@ -5414,6 +6170,12 @@ SOURCES = {
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port on one CUDA card and check it.")
+    ap.add_argument("--sw6", default=SCRIPTS["sw6"],
+                    help="phase 15: the directory of sw6's checkpoint, under the checkout")
+    SCRIPTS["sw6"] = ap.parse_args().sw6
     try:
         import torch
     except ImportError:

@@ -2,7 +2,9 @@
 ``mptpu/models/splat_overfit.py`` and of ``overfit_splat`` in
 ``scripts/splat.py``): 64 events whose vectors and binary-tree times grow
 by splitting, decoded by the ``SplattingEventGenerator`` and fit to one
-segment with a multi-resolution spectrogram loss.
+segment with a multi-resolution spectrogram loss; after the fit, the
+script's demonstration of manipulable events (the two root vectors
+perturbed) and its HTML article (:func:`splat_article`).
 """
 
 from __future__ import annotations
@@ -18,9 +20,10 @@ from ..device import default_device
 from ..gen.splat import SplattingEventGenerator
 from ..losses.iterative import iterative_loss
 from ..losses.multiband_spec import flattened_multiband_spectrogram
-from ..nn.init import uniform_init
+from ..nn.init import uniform, uniform_init
 from ..nn.multihead import MultiHeadTransform
-from ..ops import kinks
+from ..obs.article import AudioComponent, ImageComponent, conjure_article
+from ..ops import kinks, max_norm, stft
 from ..train.optim import make_train_step, optimizer
 
 
@@ -135,3 +138,57 @@ def overfit_splat(target, n_events: int = 64, event_dim: int = 16, n_iterations:
     elapsed = time.perf_counter() - t0
     skipped = sum(not np.isfinite(v) for v in losses)
     return SplatFit(model, losses, n_iterations / elapsed, skipped)
+
+
+class SplatDemo(NamedTuple):
+    recon: torch.Tensor       # (1, 1, n) the events' sum, max-normed
+    perturbed: torch.Tensor   # (1, 1, n) the same with the root vectors perturbed, max-normed
+    perturb: torch.Tensor     # (1, 2, event_dim) the perturbation
+    spectrogram: np.ndarray   # (coeffs, frames) the reconstruction's STFT, 512 / 256
+
+
+def splat_article(fit: SplatFit, target, article_path: Optional[str] = None,
+                  perturb: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                  samplerate: int = 22050, n_iterations: Optional[int] = None) -> SplatDemo:
+    """``scripts/splat.py``'s demonstration after the fit: the fitted
+    events' sum and the same events with the two root vectors moved by
+    ``perturb`` (1, 2, event_dim), both rendered with one ``noise`` draw
+    (1, 1, n) and max-normed; with ``article_path``, the article (original,
+    reconstruction, perturbed, the reconstruction's spectrogram) written
+    there. ``perturb`` and ``noise`` are drawn from a generator on the
+    model's device seeded 99 when None: uniform in [-0.5, 0.5) and [-1,
+    1). ``n_iterations`` names the fit's length in the article (the
+    fit's timed steps by default)."""
+    model = fit.model
+    dev = model.event_vectors.device
+    gen = torch.Generator(device=dev).manual_seed(99)
+    if perturb is None:
+        perturb = uniform((1, 2, model.context_dim), -0.5, 0.5, gen)
+    if noise is None:
+        noise = uniform((1, 1, model.n_samples), -1.0, 1.0, gen)
+    perturb, noise = perturb.to(dev), noise.to(dev)
+    with torch.no_grad():
+        recon = max_norm(model(noise=noise)[0].sum(1, keepdim=True))
+        perturbed = max_norm(model(noise=noise, perturb=perturb)[0].sum(1, keepdim=True))
+    spec = stft(recon, 512, 256, pad=True)[0, 0].T.cpu().numpy()
+    if article_path:
+        if isinstance(target, torch.Tensor):
+            target = target.detach().cpu().numpy()
+        target = np.asarray(target, dtype=np.float32).reshape(-1)
+        iterations = len(fit.losses) if n_iterations is None else n_iterations
+        conjure_article(
+            article_path,
+            "Audio Splatting With Physics-Inspired Event Generators",
+            [
+                AudioComponent(target, samplerate, "Original"),
+                AudioComponent(recon[0, 0].cpu().numpy(), samplerate, "Reconstruction"),
+                AudioComponent(perturbed[0, 0].cpu().numpy(), samplerate,
+                               "Perturbed event vectors"),
+                ImageComponent(spec, "Reconstruction spectrogram"),
+            ],
+            intro_markdown=(
+                f"# Audio splatting\n{2 ** model.event_levels} events fit for "
+                f"{iterations} iterations at {fit.steps_per_sec:.1f} steps/sec."
+            ),
+        )
+    return SplatDemo(recon, perturbed, perturb, spec)
