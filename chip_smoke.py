@@ -16,7 +16,8 @@ the generator zoo, the energy-instrument overfit and the GAN and
 experiment-runner trainers; then the last entry points (the MP trainers,
 the rate report, the quality run, the host plumbing) and the last scripts
 (the SIAM checkpoint evaluations, the report pages, the splat's article,
-the preset worker, the experiment runner, the multiband trajectory).
+the preset worker, the experiment runner, the multiband trajectory), and
+last the sixteen command lines of the README as a user starts them.
 
     python3 chip_smoke.py
 
@@ -207,14 +208,26 @@ Phases, each printing lines (any failure exits non-zero):
    their float32 resolution, the residual split within 1e-4 of the
    residual's energy), and on sw6's committed checkpoint when the tree
    holds it (its first window within 0.01 dB of the CPU's reading); (b) the
-   splat fit at scripts/splat.py's defaults for 100 iterations, its
-   perturbed render and article; (c) the codec's page, the overfit page of
+   splat fit at scripts/splat.py's defaults for 100 iterations on the
+   demo corpus's seed-0 segment (its files in name order), the loss
+   falling, the render not silent, its perturbed render and article; (c) the codec's page, the overfit page of
    (a)'s run, the song-splat and generalization pages, card against CPU;
    (d) the worker over 8 presets at full width (embeddings within 1e-4);
-   (e) the experiment runner, 20 iterations of the template, the loss
-   falling; (f) the multiband trajectory at e_2024_4_24's configuration,
+   (e) the experiment runner, 20 iterations of the template on the
+   corpus's seed-0 segment (name order), the loss falling; (f) the multiband trajectory at e_2024_4_24's configuration,
    iterations 0 to 3 within 0.01 and 0.05 dB of ``mptpu``'s, the cluster
    step kernel's launches by band; the CPU's sides in three processes;
+16. (after phase 15, before phase 5's times) the command lines
+   (``python -m mptpu_torch.scripts.<name>``, README.md's sixteen entry
+   points) through ``main(argv)`` at ``CLI``'s flags, each with its exit
+   code, host seconds, K1 to K6 launches and peak memory: ``mp_train`` at
+   the script's full width against a direct ``train_flat`` call on the same
+   seeded stream, 100 cluster step kernel launches a sweep, ``--multiband``
+   one chain a band and encode; ``codec_rate`` on sw6's checkpoint, its
+   first window against phase 15's CPU reading; ``build_index`` 8 launches
+   a band; the files each writes; then ``mp_train --tiny`` and
+   ``codec_rate --run`` in processes of their own
+   (``command_lines_phase``);
 5. each kernel's time beside its plain version's, its bound and, for the
    boundary kernel, one ``torch.matmul`` computing the same product; the two
    step kernels per step from a chain of launches, with and without
@@ -222,7 +235,7 @@ Phases, each printing lines (any failure exits non-zero):
    multiband band beside the whole-encode kernel doing the same steps in one
    launch; the two whole-encode kernels and the cluster step kernel by
    cluster size, with the clusters the card holds at once beside each;
-16. a ``kernels`` JSON line, then the result line
+17. a ``kernels`` JSON line, then the result line
     ``{"ok": true, "device": {...}}``.
 
 It needs CUDA and the ``mptpu_torch`` package beside it, and exits with
@@ -231,6 +244,7 @@ code 2 without either.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -678,6 +692,21 @@ SW6_WALK = dict(selection_floor=0.02, audio_events=12, stream_windows=3, gain_re
 # the target's energy; parity0 / parity: the multiband SNR before / after learning
 SCRIPTS_TOL = dict(db=0.01, channels=1e-4, residual=1e-4, embedding=1e-4, pif=1e-4,
                    parity0=0.01, parity=0.05)
+# Phase 16, the command lines (python -m mptpu_torch.scripts.<name>, README.md's sixteen entry
+# points): mp_train at scripts/mp_train.py's full width (512 atoms x 512 taps, 16,384 samples,
+# 100 steps, batch 2) for 2 of its 25 sweeps on a seeded stream, and --multiband for 1;
+# codec_rate on sw6's checkpoint (SCRIPTS["sw6"]; where the tree lacks it, seeded parameters at
+# sw6's widths, ``rate``, and STFT ``rate_window``/256); build_index at its default chunk size for
+# 2 of its 32 chunks; the walk's eval on a seeded run at ``run``'s widths (the script has no
+# --tiny); the rest at --tiny, the trainers for ``iterations`` steps. CLI_SMALL is the CPU
+# rehearsal's.
+CLI = dict(tiny=False, sweeps=2, seed=1, iterations=10, chunks=2, chunk_size=16384,
+           rate=dict(n_samples_log2=17, n_events=32, hidden=128, context_dim=32),
+           rate_window=2048, run=dict(n_samples_log2=13, n_events=4, hidden=32, context_dim=16),
+           splat=["--tiny"])
+CLI_SMALL = dict(CLI, tiny=True, rate=CLI["run"], rate_window=512, iterations=2, chunks=1,
+                 chunk_size=2048,
+                 splat=["--n-samples", "4096", "--n-events", "4", "--iterations", "2"])
 # the probe's kinds: label -> (kind, programmatic)
 PROBE_KINDS = {"grid": ("grid", False), "grid chained": ("grid", True), "fori": ("fori", False)}
 HOLD_CYCLES = 20_000_000   # about 10 ms of device spinning ahead of a timed run
@@ -721,6 +750,27 @@ def planted_signal(cfg, seed: int = 1):
         inside = min(cfg.get("clip_taps", 300), A - 1)
         sig[i, 0, n - inside :] += du[rng.integers(N), :inside] * (20.0 if i % 2 == 0 else 6.0)
     return d, sig
+
+
+@contextlib.contextmanager
+def corpus_in_name_order(seed=None):
+    """Inside the block the data streams list a corpus's files in name
+    order. Their own order is ``os.walk``'s, the file system's, which
+    differs from one machine to the next, and with it the file that a
+    seeded draw such as ``get_one_audio_segment(seed=0)`` picks. With
+    ``seed``, a stream opened without one (the experiment template's)
+    draws from ``seed``."""
+    from mptpu_torch.data import audioiter, datastore
+
+    listing, stream = datastore.iter_files, audioiter.batch_stream
+    datastore.iter_files = lambda base, pattern: iter(sorted(listing(base, pattern)))
+    if seed is not None:
+        audioiter.batch_stream = lambda *a, **k: stream(
+            *a, **dict(k, seed=seed if k.get("seed") is None else k["seed"]))
+    try:
+        yield
+    finally:
+        datastore.iter_files, audioiter.batch_stream = listing, stream
 
 
 def sines_signal(n: int, rng):
@@ -5085,12 +5135,13 @@ def last_scripts_phase(dev, cfg, peaks, sync, records):
     split, streaming walk, held-out anatomy) at the scripts' widths on a run
     directory of seed-0 parameters, card against CPU, and on sw6's committed
     checkpoint when the tree holds it (its first window against the CPU's
-    reading); (b) the splat fit, its perturbed render and article; (c) the
-    codec's page, the overfit page of (a)'s run, the song-splat page and the
-    generalization page; (d) the worker over an inbox of presets, card
-    against CPU; (e) the dated-experiment runner; (f) the multiband learning
-    trajectory against ``mptpu``'s, with the cluster step kernel's launches
-    by band. The CPU's sides of (a), (c) and (d) run in three processes of
+    reading); (b) the splat fit on the demo corpus's seed-0 segment, its
+    files in name order, the render not silent, its perturbed render and
+    article; (c) the codec's page, the overfit page of (a)'s run, the
+    song-splat page and the generalization page; (d) the worker over an
+    inbox of presets, card against CPU; (e) the dated-experiment runner on
+    the corpus's seed-0 segment; (f) the multiband learning trajectory
+    against ``mptpu``'s, with the cluster step kernel's launches by band. The CPU's sides of (a), (c) and (d) run in three processes of
     their own meanwhile."""
     import os
     import shutil
@@ -5323,7 +5374,8 @@ def last_scripts_phase(dev, cfg, peaks, sync, records):
 
         # ---- (b) the splat, its perturbed render and article
         s = cfg["splat"]
-        target = get_one_audio_segment(s["n_samples"], seed=0, device=cpu).reshape(-1)
+        with corpus_in_name_order():
+            target = get_one_audio_segment(s["n_samples"], seed=0, device=cpu).reshape(-1)
         kernels.reset_launches()
         peak_reset(dev)
         t0 = time.perf_counter()
@@ -5335,16 +5387,23 @@ def last_scripts_phase(dev, cfg, peaks, sync, records):
         losses = fit.losses
         diff = float((demo_out.perturbed - demo_out.recon).abs().max())
         finite = bool(torch.isfinite(demo_out.perturbed).all())
+        # the reconstruction is max-normed: its peak stays below 1 only where the render's own
+        # peak is near max_norm's 1e-8, a render that has gone silent; a silent render no
+        # longer depends on the noise drawn each step, so its last losses are all equal
+        peak = float(demo_out.recon.abs().max())
+        distinct = len(set(losses[-10:]))
         print(f"scripts (b) splat at {s['n_samples']} samples, {s['n_events']} events, context "
               f"{s['event_dim']}: {s['iterations']} of the script's 3,000 iterations at "
               f"{fit.steps_per_sec:.2f} steps/s; loss {losses[0]:.4f} -> {losses[-1]:.4f} "
-              f"(first and last 10: {np.mean(losses[:10]):.4f} -> {np.mean(losses[-10:]):.4f}), "
-              f"{fit.skipped} skipped; perturbed render max abs {diff:.4f} off the "
+              f"(first and last 10: {np.mean(losses[:10]):.4f} -> {np.mean(losses[-10:]):.4f}, "
+              f"{distinct} distinct of the last 10), {fit.skipped} skipped; reconstruction peak "
+              f"{peak:.4f} after max-norm; perturbed render max abs {diff:.4f} off the "
               f"reconstruction, finite {finite}; article {(work / 'splat.html').stat().st_size} "
               "bytes")
         if not (np.mean(losses[-10:]) < np.mean(losses[:10]) and fit.skipped == 0 and finite
-                and diff > 1e-3):
-            fail("scripts (b): the splat did not fit, or its perturbed render is not a change")
+                and diff > 1e-3 and peak > 0.5 and distinct > 1):
+            fail("scripts (b): the splat did not fit, its render went silent, or its perturbed "
+                 "render is not a change")
         part_line("scripts (b) splat", t0, launches, "one render",
                   lambda: fit.model(noise=torch.zeros((1, 1, s["n_samples"]), device=dev)))
         del fit
@@ -5412,7 +5471,9 @@ def last_scripts_phase(dev, cfg, peaks, sync, records):
             src.write_text(src.read_text().replace("n_samples = 2 ** 15",
                                                    f"n_samples = {e['n_samples']}"))
         listed = ex.list_experiments(str(exps))
-        _, exp = ex.run_current(str(exps), e["iterations"], device=dev, log=quiet)
+        # the template draws its segment without a seed: seed 0 makes the gate reproducible
+        with corpus_in_name_order(seed=0):
+            _, exp = ex.run_current(str(exps), e["iterations"], device=dev, log=quiet)
         sync()
         launches = counted("scripts (e) experiment", {})
         print(f"scripts (e) experiment {listed}: {e['iterations']} iterations of the template, "
@@ -5621,10 +5682,330 @@ def last_scripts_phase(dev, cfg, peaks, sync, records):
         tmp.cleanup()
 
 
+# the worker's preset in phase 16 and in tests/test_torch_scripts_cli.py
+CLI_PRESET = {"preset_id": "p00_ssm", "synth": "ssm",
+              "params": {"control_plane_dim": 8, "window_size": 64, "state_dim": 16}}
+
+
+def cli_required(name: str, argv) -> set:
+    """The files the command line ``name`` must leave at ``argv`` (its
+    worker given ``CLI_PRESET``), under the script's names, as paths
+    relative to the working directory it runs in; phase 16 and
+    ``tests/test_torch_scripts_cli.py`` hold their runs to it."""
+    import importlib
+    import os
+
+    from mptpu_torch.models import mp_train as mt
+
+    a = importlib.import_module(f"mptpu_torch.scripts.{name}").build_parser().parse_args(argv)
+    at = lambda d, *fs: {os.path.relpath(os.path.join(d, f)) for f in fs}   # noqa: E731
+    db = lambda p: at("", f"{p}.db")   # noqa: E731  (its -wal / -shm beside it may remain)
+    if name == "mp_train":
+        n = (mt.TINY if a.tiny else mt.DEFAULTS)["n_samples"]
+        return at("trained_weights", *(f"band_{s}.dat" for s in mt.BAND_SIZES
+                                       if s <= n)) if a.multiband else set()
+    if name == "codec_rate":
+        return at(a.run, "codec_rate.json", "recon_wire_f16.wav",
+                  *(["recon_wire_walk_f16.wav"] if a.walk else []))
+    if name == "overfit_stream_eval":
+        return at(a.run, "stream_eval.json", "recon_streaming.wav")
+    if name == "train_siam":
+        return (at("trained_weights/siam", "ckpt_000000000.pkl") if a.save_weights else set()) \
+            | db("trained_weights/siam_dashboard")
+    if name == "siam_quality":
+        return at(a.out, "metrics.json")
+    if name == "build_index":
+        return db("trained_weights/search_index")
+    if name in ("splat", "ssm_article"):
+        weights = [a.article.replace(".html", "_weights.json")] if name == "ssm_article" else []
+        return at("", a.article, *weights) if a.article else set()
+    if name == "songsplat":
+        return at(a.out, "song_eval.json", "song_target.wav", "song_recon.wav")
+    if name == "instrument":
+        return at("", a.demo) if a.demo else set()
+    if name == "texture":
+        return at(a.out, "recon.wav", "target.wav") | db(f"{a.out}/dashboard")
+    if name == "report":
+        return at("", a.out)
+    if name == "worker":
+        return at(a.outbox, f"{CLI_PRESET['preset_id']}.json")
+    if name == "experiment":
+        from mptpu_torch.scripts.experiment import EXPERIMENTS_DIR
+
+        return at(EXPERIMENTS_DIR, "__init__.py") if a.new else set()
+    return set()   # resonance_overfit, energy_overfit
+
+
+def command_lines_phase(dev, cfg, peaks, sync, records):
+    """Phase 16, the command lines (``python -m mptpu_torch.scripts.<name>``,
+    README.md's sixteen entry points) through ``main(argv)`` on ``dev``, each
+    in a working directory of its own, launch counts set to 0 before each and
+    read after it: exit code, host seconds, launches and peak memory; the
+    files each writes under the script's names; ``mp_train`` at the script's
+    full width against a direct ``train_flat`` call on the same seeded
+    stream (initial SNR equal, reports within 0.01 dB, the dictionary within
+    1e-4), 100 cluster step kernel launches a sweep, ``--multiband`` one
+    chain a band; ``codec_rate`` on sw6's checkpoint (its first window within
+    0.01 dB of phase 15's CPU reading; where the tree lacks it, seeded
+    parameters at sw6's widths); ``build_index`` 8 launches a band; no
+    launch elsewhere; then ``mp_train --tiny`` and ``codec_rate --run`` in
+    processes of their own, the latter's first window within 0.01 dB of the
+    in-process run's."""
+    import contextlib
+    import importlib
+    import io
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from mptpu_torch import convert, kernels
+    from mptpu_torch.models import mp_train as mt
+    from mptpu_torch.models import siam as ts
+    from mptpu_torch.train.checkpoint import save_checkpoint
+
+    on_card = dev.type == "cuda"
+    device = "cuda" if on_card else "cpu"
+    K4 = "cuda_fused_step_pipelined"
+    tmp = tempfile.TemporaryDirectory()
+    work = Path(tmp.name)
+    saved = {k: os.environ.get(k) for k in ("MPTPU_CACHE", "AUDIO_PATH")}
+    os.environ.pop("AUDIO_PATH", None)
+    os.environ["MPTPU_CACHE"] = str(work / "cache")
+    cwd = os.getcwd()
+    problems = []
+
+    def run_dir(path, w, window):
+        """A run directory of seeded parameters at widths ``w`` and STFT
+        ``window``/256, its config line recording them."""
+        path.mkdir(parents=True)
+        model = ts.SIAMModel(n_samples=2 ** w["n_samples_log2"], context_dim=w["context_dim"],
+                             in_channels=window // 2 + 1, hidden_channels=w["hidden"],
+                             n_events=w["n_events"], transform_window_size=window,
+                             transform_step_size=256, fft_resonance=True, attn_floor=0.01,
+                             attn_leak=0.1, switch_bias_init=1.0, switch_clamp=20.0,
+                             residual_clamp_scale=4.0, encoder_clamp=1e4,
+                             generator=torch.Generator().manual_seed(1), device="cpu")
+        save_checkpoint(str(path / "ckpt_000000007.pkl"), convert.module_to_flax(model), None, 7)
+        (path / "metrics.json").write_text(json.dumps({"config": (
+            f"overfit 1 segment seed 3, n_samples 2^{w['n_samples_log2']}, {w['n_events']} "
+            f"events, STFT {window}/256, spectral_skip False, spectral_filter False")}))
+        return path
+
+    def flags(w):
+        return [f"--{k.replace('_', '-')}={v}" for k, v in w.items()]
+
+    def first_window(run):
+        """The raw, f16 wire and refined first-half SNRs of ``run``'s
+        ``codec_rate.json``."""
+        rate = json.loads((run / "codec_rate.json").read_text())
+        return dict(raw=rate["raw_first_half_snr_db"],
+                    wire=rate["presets"]["f16"]["wire_first_half_snr_db"],
+                    refined=rate["presets"]["f16"]["refined_first_half_snr_db"])
+
+    @contextlib.contextmanager
+    def recorded(module, fn, into):
+        """Calls of ``module.fn`` let through, their results kept in ``into``."""
+        real = getattr(module, fn)
+
+        def spy(*args, **kwargs):
+            into.append(real(*args, **kwargs))
+            return into[-1]
+
+        setattr(module, fn, spy)
+        try:
+            yield
+        finally:
+            setattr(module, fn, real)
+
+    def command_line(label, name, argv, want=None, stdin=""):
+        """``main(argv)`` of the command line ``name`` in ``work/label``:
+        its exit code, seconds, launches (every kernel 0 but ``want``) and
+        peak memory on one line; the files it must write."""
+        here = work / label
+        here.mkdir(exist_ok=True)
+        os.chdir(here)
+        kernels.reset_launches()
+        peak_reset(dev)
+        module = importlib.import_module(f"mptpu_torch.scripts.{name}")
+        t0 = time.perf_counter()
+        kept_stdin = sys.stdin
+        sys.stdin = io.StringIO(stdin)
+        try:
+            with open(here.parent / f"{label}.log", "w") as log, contextlib.redirect_stdout(log):
+                code = module.main(list(argv) + ["--device", device])
+        finally:
+            sys.stdin = kept_stdin
+        sync()
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        expected = {k: ((want or {}).get(k, 0) if on_card else 0) for k in launches}
+        written = {str(p.relative_to(here)) for p in here.rglob("*") if p.is_file()}
+        missing = cli_required(name, argv) - written
+        print(f"cli {label} ({name} {' '.join(argv)}): exit {code}, {seconds:.2f} s (host "
+              f"clock), launches "
+              + ", ".join(f"{k} {v}" for k, v in launches.items())
+              + f", peak memory {peak_gib(dev)}; {len(written)} files")
+        if code != 0:
+            problems.append(f"{label} exited {code}")
+        if launches != expected:
+            problems.append(f"{label}: launches {launches}, expected {expected}")
+        if missing:
+            problems.append(f"{label}: did not write {sorted(missing)}")
+        os.chdir(cwd)
+        return launches
+
+    try:
+        t_phase = time.perf_counter()
+        # the inputs: sw6's checkpoint (where the tree lacks it, seeded parameters at sw6's
+        # widths), a seeded run for the walk, a preset for the worker
+        sw6 = ROOT / cfg["sw6"] if cfg["sw6"] else None
+        rate_run = work / "rate_src"
+        if sw6 is not None and (sw6 / "ema_best.pkl").exists():
+            rate_run.mkdir()
+            for f in ("ema_best.pkl", "metrics.json"):
+                shutil.copyfile(sw6 / f, rate_run / f)
+        else:
+            run_dir(rate_run, cfg["rate"], cfg["rate_window"])
+            sw6 = None
+        rate_flags = [] if sw6 is not None else flags(cfg["rate"])
+        walk_run = run_dir(work / "walk_src", cfg["run"], 2048)
+
+        # (a) mp_train at its full width, on a seeded stream, against a direct train_flat call
+        widths = dict(mt.TINY) if cfg["tiny"] else dict(mt.DEFAULTS, sweeps=cfg["sweeps"])
+        argv = ["--tiny"] if cfg["tiny"] else ["--sweeps", str(cfg["sweeps"])]
+        S, bands = widths["n_steps"], sum(s <= widths["n_samples"] for s in mt.BAND_SIZES)
+        real_iter = mt.AudioIterator
+        mt.AudioIterator = lambda *a, **k: real_iter(*a, **dict(k, seed=cfg["seed"]))
+        flat = []
+        try:
+            with recorded(mt, "train_flat", flat):
+                launches = command_line("mp_train", "mp_train", argv, {K4: S * widths["sweeps"]})
+            records[K4]["launches_cli_mp_train"] = launches[K4]
+            direct = mt.train_flat(**widths, device=dev, log=lambda s: None)
+        finally:
+            mt.AudioIterator = real_iter
+        (cli,) = flat
+        d_err = float((cli.learned - direct.learned).abs().max())
+        off = max(abs(a[1] - b[1]) for a, b in zip(cli.reports, direct.reports))
+        print(f"cli mp_train against train_flat on the same seeded stream: initial SNR "
+              f"{cli.initial_snr_db:.4f} and {direct.initial_snr_db:.4f} dB, reports "
+              f"{[round(r[1], 4) for r in cli.reports]} and "
+              f"{[round(r[1], 4) for r in direct.reports]} dB ({off:.2e} apart, gate "
+              f"{ENTRY_TOL['db']}), dictionaries {d_err:.2e} apart (gate "
+              f"{ENTRY_TOL['dictionary']})")
+        if (cli.initial_snr_db != direct.initial_snr_db or off > ENTRY_TOL["db"]
+                or d_err > ENTRY_TOL["dictionary"]
+                or [r[0] for r in cli.reports] != [r[0] for r in direct.reports]):
+            problems.append("mp_train: the command line is off train_flat's call")
+        # --multiband: the initial recon, each sweep's learn and each report encode every band
+        # by one chain of S launches
+        mb_sweeps = 1 if not cfg["tiny"] else widths["sweeps"]
+        reports = sum(i % 5 == 0 or i == mb_sweeps - 1 for i in range(mb_sweeps))
+        mb_argv = ["--tiny", "--multiband"] if cfg["tiny"] else ["--multiband", "--sweeps", "1"]
+        launches = command_line("mp_train_multiband", "mp_train", mb_argv,
+                                {K4: S * bands * (1 + mb_sweeps + reports)})
+        records[K4]["launches_cli_mp_train_multiband"] = launches[K4]
+
+        # (b) codec_rate on sw6 (or at its widths), then the walk's eval on a tiny run
+        shutil.copytree(rate_run, work / "codec_rate" / "run")
+        command_line("codec_rate", "codec_rate", ["--run", "run"] + rate_flags)
+        got = first_window(work / "codec_rate" / "run")
+        if sw6 is not None:
+            off = {k: round(abs(got[k] - v), 4) for k, v in SW6_FIRST_WINDOW.items()}
+            print(f"cli codec_rate on sw6: first window raw {got['raw']}, f16 wire "
+                  f"{got['wire']}, refined {got['refined']} dB against phase 15's "
+                  f"{SW6_FIRST_WINDOW} ({off} apart, gate {SCRIPTS_TOL['db']} dB)")
+            if max(off.values()) > SCRIPTS_TOL["db"]:
+                problems.append(f"codec_rate: sw6's first window is off by {off}")
+        else:
+            print(f"cli codec_rate: {cfg['sw6'] or 'sw6'}/ema_best.pkl is not in this tree; seeded "
+                  f"parameters at {cfg['rate']}, STFT {cfg['rate_window']}/256, read {got} dB "
+                  "(held against the process's run below)")
+        shutil.copytree(walk_run, work / "overfit_stream_eval" / "run")
+        command_line("overfit_stream_eval", "overfit_stream_eval",
+                     ["--run", "run"] + flags(cfg["run"]))
+
+        # (c) the rest
+        iters = ["--iterations", str(cfg["iterations"])]
+        command_line("train_siam", "train_siam", ["--tiny", "--port", "0", "--seed", "0",
+                                                  "--save-weights"] + iters)
+        command_line("siam_quality", "siam_quality", ["--tiny", "--iterations", "3",
+                                                      "--timing-steps", "0", "--out", "q"])
+        index_bands = sum(s <= cfg["chunk_size"] for s in mt.BAND_SIZES)
+        launches = command_line("build_index", "build_index",
+                                ["--chunks", str(cfg["chunks"]), "--chunk-size",
+                                 str(cfg["chunk_size"])], {K4: 8 * index_bands * cfg["chunks"]})
+        records[K4]["launches_cli_build_index"] = launches[K4]
+        command_line("splat", "splat", cfg["splat"] + ["--article", "splat.html"])
+        command_line("ssm_article", "ssm_article", ["--tiny", "--article", "ssm.html"] + iters)
+        command_line("songsplat", "songsplat", ["--tiny"] + iters)
+        command_line("instrument", "instrument", ["--tiny", "--demo", "out.wav"])
+        command_line("instrument_repl", "instrument", ["--tiny"],
+                     stdin="note 0.1\nnote 0.5 0.8 3\nrender r.wav\nquit\n")
+        if not (work / "instrument_repl" / "r.wav").exists():
+            problems.append("instrument's REPL rendered no r.wav")
+        command_line("resonance_overfit", "resonance_overfit", ["--tiny"] + iters)
+        command_line("energy_overfit", "energy_overfit", ["--tiny"] + iters)
+        command_line("texture", "texture", ["--tiny"] + iters)
+        command_line("report", "report", ["--tiny", "--out", "report.html"])
+        (work / "worker" / "worker_inbox").mkdir(parents=True)
+        (work / "worker" / "worker_inbox" / "p00_ssm.json").write_text(json.dumps(CLI_PRESET))
+        command_line("worker", "worker", ["--once"])
+        command_line("experiment", "experiment", ["--new"])
+        command_line("experiment", "experiment", ["--list"])
+        command_line("experiment", "experiment", iters)
+        print(f"cli: the in-process command lines took {time.perf_counter() - t_phase:.1f} s "
+              "(host clock)")
+
+        # (d) two of them as a user starts them, each in a process of its own
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        for label, argv in (("mp_train --tiny", ["mptpu_torch.scripts.mp_train", "--tiny"]),
+                            ("codec_rate --run", ["mptpu_torch.scripts.codec_rate", "--run",
+                                                  "run"] + rate_flags)):
+            here = work / "process" / label.split()[0]
+            if "codec_rate" in label:
+                shutil.copytree(rate_run, here / "run")
+            here.mkdir(parents=True, exist_ok=True)
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m"] + argv + ["--device", device],
+                                  cwd=str(here), env=env, capture_output=True, text=True,
+                                  timeout=600)
+            print(f"cli process python -m {' '.join(argv)}: exit {proc.returncode}, "
+                  f"{time.perf_counter() - t0:.1f} s (host clock, the start included); its last "
+                  f"line: {(proc.stdout.strip().splitlines() or [''])[-1][:120]}")
+            if proc.returncode != 0:
+                problems.append(f"process {label} exited {proc.returncode}: "
+                                f"{proc.stderr[-1500:]}")
+            elif "codec_rate" in label:
+                if not (here / "run" / "codec_rate.json").exists():
+                    problems.append("process codec_rate --run wrote no codec_rate.json")
+                    continue
+                first = first_window(here / "run")
+                off = {k: round(abs(first[k] - v), 4) for k, v in got.items()}
+                print(f"cli process codec_rate: first window {first} dB, {off} off the "
+                      f"in-process run's (gate {SCRIPTS_TOL['db']} dB)")
+                if max(off.values()) > SCRIPTS_TOL["db"]:
+                    problems.append(f"process codec_rate: its first window is off by {off}")
+        print(f"cli: the phase took {time.perf_counter() - t_phase:.1f} s (host clock)")
+        if problems:
+            fail("cli: " + " | ".join(problems))
+    finally:
+        os.chdir(cwd)
+        for key, v in saved.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
+        tmp.cleanup()
+
+
 def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM, ssm=SSM,
         siam_train=SIAM_TRAIN, models=MODELS, longtail=LONGTAIL, perceptual=PERCEPTUAL, zoo=ZOO,
-        entry=ENTRY, scripts=SCRIPTS):
-    """Phases 2-15 on device ``dev``; returns the kernels' records."""
+        entry=ENTRY, scripts=SCRIPTS, cli=CLI):
+    """Phases 2-16 on device ``dev``; returns the kernels' records."""
     import torch
     import torch.nn.functional as F
 
@@ -6049,6 +6430,8 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM, ssm=SSM,
     entry_points_phase(dev, entry, peaks, sync, records)
 
     last_scripts_phase(dev, scripts, peaks, sync, records)
+
+    command_lines_phase(dev, dict(cli, sw6=scripts["sw6"]), peaks, sync, records)
 
     # ---- phase 5: per-kernel times
     fm, bm, res = encode_state(sig_b, d2_b, geom)

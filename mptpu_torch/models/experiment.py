@@ -52,9 +52,13 @@ def list_experiments(experiments_dir: str) -> List[str]:
 def load_current(experiments_dir: str):
     """The class ``Current`` that ``experiments_dir/__init__.py`` names,
     imported afresh as a package of its own name (the directory's path
-    decides it), so that another experiments directory is never shadowed."""
+    decides it), so that another experiments directory is never shadowed.
+    The path is made absolute: the import system caches a finder for each
+    search path, and a relative one would keep the first working
+    directory's."""
+    experiments_dir = os.path.abspath(experiments_dir)
     init = os.path.join(experiments_dir, "__init__.py")
-    name = f"_experiments_{zlib.crc32(os.path.abspath(experiments_dir).encode()):08x}"
+    name = f"_experiments_{zlib.crc32(experiments_dir.encode()):08x}"
     for key in [k for k in sys.modules if k == name or k.startswith(name + ".")]:
         del sys.modules[key]
     spec = importlib.util.spec_from_file_location(name, init,

@@ -150,3 +150,33 @@ def test_chip_phase_rehearsal():
     chip_smoke.last_scripts_phase(torch.device("cpu"), chip_smoke.SCRIPTS_SMALL,
                                   device_peaks("H100"), lambda: None, records)
     assert records["cuda_fused_step_pipelined"]["launches_multiband_parity"] == 0
+
+
+def test_chip_phase_splat_target_is_in_name_order(tmp_path, monkeypatch):
+    """Phase 15's splat target, ``get_one_audio_segment(seed=0)`` under
+    ``chip_smoke.corpus_in_name_order``, is the same segment whatever order
+    the file system lists the demo corpus in (``os.walk``'s, here reversed
+    and rotated, two orders that put different files at the draw's index);
+    with ``seed=0`` an unseeded stream (phase 15 (e)'s template) draws the
+    same segment; the listing and the stream are restored after the block."""
+    import chip_smoke
+    from mptpu_torch.data import AudioIterator, audioiter, datastore, get_one_audio_segment
+
+    monkeypatch.setenv("MPTPU_CACHE", str(tmp_path))
+    monkeypatch.delenv("AUDIO_PATH", raising=False)
+    walk = os.walk
+    targets = []
+    for order in (lambda f: sorted(f, reverse=True), lambda f: sorted(f)[2:] + sorted(f)[:2]):
+        monkeypatch.setattr(os, "walk", lambda base, walk=walk, order=order: (
+            (d, sub, order(files)) for d, sub, files in walk(base)))
+        listing, stream = datastore.iter_files, audioiter.batch_stream
+        with chip_smoke.corpus_in_name_order():
+            targets.append(get_one_audio_segment(2**12, seed=0, device="cpu").numpy())
+        with chip_smoke.corpus_in_name_order(seed=0):
+            unseeded = AudioIterator(1, 2**12, normalize=True, overfit=True, device="cpu")
+            targets.append(next(iter(unseeded)).numpy())
+        assert datastore.iter_files is listing and audioiter.batch_stream is stream
+    monkeypatch.setattr(os, "walk", walk)
+    assert float(np.abs(targets[0]).max()) > 0
+    for got in targets[1:]:
+        np.testing.assert_array_equal(got, targets[0])

@@ -38,6 +38,7 @@ import pytest
 import torch
 
 import chip_smoke
+import mptpu.sparse.quantize as jquantize
 import mptpu.utils.platform as jplatform
 from mptpu.data import datastore as jds
 from mptpu.train.checkpoint import save_checkpoint as j_save_checkpoint
@@ -91,8 +92,11 @@ def run_dir(root, name, widths, config):
 
 def run_script(name, flags):
     """``scripts/<name>.py``'s ``main`` with ``flags`` as its command line,
-    its compilation cache stubbed and its watchdog cancelled."""
+    its compilation cache stubbed, its watchdog cancelled and the selection
+    knobs it sets for the process (``mptpu.sparse.quantize``) put back, so
+    that later tests in this process see ``mptpu`` as a fresh process does."""
     kept, old_argv = jplatform.enable_compilation_cache, sys.argv
+    knobs = (jquantize.RELU_SELECTION_LEAK, jquantize.RELU_SELECTION_FLOOR)
     jplatform.enable_compilation_cache = lambda *a, **k: None
     try:
         spec = importlib.util.spec_from_file_location(f"{name}_script",
@@ -106,6 +110,8 @@ def run_script(name, flags):
         sys.argv = old_argv
         faulthandler.cancel_dump_traceback_later()
         jplatform.enable_compilation_cache = kept
+        jquantize.set_selection_leak(knobs[0])
+        jquantize.set_selection_floor(knobs[1])
     return mod
 
 
