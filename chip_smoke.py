@@ -228,6 +228,18 @@ Phases, each printing lines (any failure exits non-zero):
    a band; the files each writes; then ``mp_train --tiny`` and
    ``codec_rate --run`` in processes of their own
    (``command_lines_phase``);
+17. (after phase 16, before phase 5's times) the eleven remaining command
+   lines (ROADMAP A12b) through ``main(argv)`` at ``CLI_MORE``'s flags, each
+   in a working directory of its own with its exit code, host seconds, K1
+   to K6 launches and peak memory and the files it writes: ``siam_overfit``
+   with sw6's launch flags, resumed in a process of its own,
+   ``--commit-artifacts`` refused; the three evaluations on sw6's
+   checkpoint, the refinement against phase 15's reading;
+   ``report_generalization``; ``multiband_parity`` (3,136 cluster step kernel
+   launches, its SNRs against a direct call); the four trainers and the
+   room; ``train_siam`` under ``torchrun`` (NCCL, one rank) against the
+   same flags in process, and on two gloo ranks (parameters identical bit
+   for bit) against one process (``more_command_lines_phase``);
 5. each kernel's time beside its plain version's, its bound and, for the
    boundary kernel, one ``torch.matmul`` computing the same product; the two
    step kernels per step from a chain of launches, with and without
@@ -235,7 +247,7 @@ Phases, each printing lines (any failure exits non-zero):
    multiband band beside the whole-encode kernel doing the same steps in one
    launch; the two whole-encode kernels and the cluster step kernel by
    cluster size, with the clusters the card holds at once beside each;
-17. a ``kernels`` JSON line, then the result line
+18. a ``kernels`` JSON line, then the result line
     ``{"ok": true, "device": {...}}``.
 
 It needs CUDA and the ``mptpu_torch`` package beside it, and exits with
@@ -707,6 +719,36 @@ CLI = dict(tiny=False, sweeps=2, seed=1, iterations=10, chunks=2, chunk_size=163
 CLI_SMALL = dict(CLI, tiny=True, rate=CLI["run"], rate_window=512, iterations=2, chunks=1,
                  chunk_size=2048,
                  splat=["--n-samples", "4096", "--n-events", "4", "--iterations", "2"])
+# Phase 17, the eleven remaining command lines (ROADMAP A12b) and train_siam across ranks, at each
+# script's default widths, only the iteration counts cut: siam_overfit with sw6's launch flags
+# (SW6_LAUNCH; 2^17 samples, 32 events, STFT 2048/256, 3 stream windows) for 4 of its 30,000
+# steps, evals every 2 and the walk every 3 (sw6: 250 and 1,000), then resumed in a process of
+# its own to step 6; the three evaluations on sw6's checkpoint (SCRIPTS["sw6"]; where the tree
+# lacks it, seeded parameters at their widths); multiband_parity at e_2024_4_24's configuration
+# for 3 of its 10 iterations (3,136 cluster step kernel launches); audiooperator, funcsong,
+# textural and phaseinvariance for 3 steps, roomsim at its defaults with 3 overfit steps;
+# train_siam --tiny for 3 steps under torchrun (one NCCL rank on the card) and on two gloo ranks.
+# CLI_MORE_SMALL is the CPU rehearsal's (eval_widths shrinks the evaluations' model).
+CLI_MORE = dict(tiny=False, overfit=dict(iterations=4, eval_every=2, walk_every=3, resume=6),
+                eval_widths=None, multiband=dict(iterations=3, config={}), iterations=3,
+                room_frames=None, phase_samples=None, train_iterations=3, ranks=2, threads=2)
+CLI_MORE_SMALL = dict(CLI_MORE, tiny=True,
+                      eval_widths=dict(n_samples=2**13, n_events=4, hidden=32, context_dim=16),
+                      multiband=dict(iterations=2, config=SCRIPTS_SMALL["multiband"]["config"]),
+                      room_frames=16, phase_samples=4096, train_iterations=2, threads=1)
+# scripts/sw6_launch.sh's trainer flags, less --commit-artifacts (refused), --stall-s, --out and
+# the counts phase 17 cuts (--iterations, --eval-every, --walk-eval-every)
+SW6_LAUNCH = ["--stream-windows", "3", "--audio-events", "12", "--seed", "3",
+              "--waveform-weight", "2000", "--fixed-noise", "--switch-bias-init", "1.0",
+              "--selection-leak", "0.02", "--selection-floor", "0.02", "--attn-floor", "0.01",
+              "--attn-leak", "0.1", "--eval-regress-db", "2.0", "--gain-refit", "1e-3",
+              "--align-refine", "256", "--ema", "0.999", "--residual-handoff", "1000",
+              "--balance-windows", "--b2", "0.999", "--gain-reg", "1e-3", "--lr", "3e-4",
+              "--holdout-eval"]
+# phase 17's gates: losses of one rank under torchrun against one process (the same sums on one
+# card, relative), of two gloo ranks against one process on the whole batch (float32 sums in
+# another order; ROADMAP C), and the command line's multiband SNRs against a direct call (dB)
+CLI_MORE_TOL = dict(torchrun=1e-6, ranks=1e-3, parity=1e-6)
 # the probe's kinds: label -> (kind, programmatic)
 PROBE_KINDS = {"grid": ("grid", False), "grid chained": ("grid", True), "fori": ("fori", False)}
 HOLD_CYCLES = 20_000_000   # about 10 ms of device spinning ahead of a timed run
@@ -5142,7 +5184,8 @@ def last_scripts_phase(dev, cfg, peaks, sync, records):
     inbox of presets, card against CPU; (e) the dated-experiment runner on
     the corpus's seed-0 segment; (f) the multiband learning trajectory
     against ``mptpu``'s, with the cluster step kernel's launches by band. The CPU's sides of (a), (c) and (d) run in three processes of
-    their own meanwhile."""
+    their own meanwhile. Returns {"refine": the refinement's report on
+    sw6's checkpoint} when the tree holds it, else {}."""
     import os
     import shutil
     import subprocess
@@ -5184,6 +5227,7 @@ def last_scripts_phase(dev, cfg, peaks, sync, records):
     os.environ.pop("AUDIO_PATH", None)
     os.environ["MPTPU_CACHE"] = str(work / "cache")
     procs = {}
+    readings = {}
 
     def counted(label, want):
         launches = dict(kernels.LAUNCHES)
@@ -5337,6 +5381,7 @@ def last_scripts_phase(dev, cfg, peaks, sync, records):
                        refined=rate["presets"]["f16"]["refined_first_half_snr_db"])
             s_refine = ore.refine_eval(str(sw6), str(out), ckpt=ema, noise=noise42, device=dev,
                                        log=quiet)
+            readings["refine"] = s_refine
             s_diag = od.diag(str(sw6), str(out), ckpt=ema, noise=noise42, device=dev, log=quiet)
             s_stream = ose.stream_eval(str(sw6), str(out), noise=noise42, device=dev, log=quiet,
                                        **SW6_WALK)
@@ -5680,6 +5725,7 @@ def last_scripts_phase(dev, cfg, peaks, sync, records):
             else:
                 os.environ[key] = v
         tmp.cleanup()
+    return readings
 
 
 # the worker's preset in phase 16 and in tests/test_torch_scripts_cli.py
@@ -5690,8 +5736,8 @@ CLI_PRESET = {"preset_id": "p00_ssm", "synth": "ssm",
 def cli_required(name: str, argv) -> set:
     """The files the command line ``name`` must leave at ``argv`` (its
     worker given ``CLI_PRESET``), under the script's names, as paths
-    relative to the working directory it runs in; phase 16 and
-    ``tests/test_torch_scripts_cli.py`` hold their runs to it."""
+    relative to the working directory it runs in; phases 16 and 17 and
+    ``tests/test_torch_scripts_cli*.py`` hold their runs to it."""
     import importlib
     import os
 
@@ -5733,7 +5779,110 @@ def cli_required(name: str, argv) -> set:
         from mptpu_torch.scripts.experiment import EXPERIMENTS_DIR
 
         return at(EXPERIMENTS_DIR, "__init__.py") if a.new else set()
+    if name == "siam_overfit":
+        return at(a.out, "metrics.json", "target.wav", f"ckpt_{a.iterations - 1:09d}.pkl")
+    if name == "overfit_refine_eval":
+        return at(a.run, "refine_eval.json", "recon_aligned_best.wav")
+    if name == "overfit_diag":
+        return at(a.run, "diag.json")
+    if name == "holdout_anatomy":
+        from mptpu_torch.scripts.holdout_anatomy import HOLDOUT_DIR
+
+        return at("", a.out or os.path.join(a.run, "anatomy.json")) | at(
+            HOLDOUT_DIR, "synthetic_dense_0.wav", "synthetic_dense_1.wav")
+    if name == "report_generalization":
+        return at("", a.out)
+    if name == "multiband_parity":
+        from mptpu_torch.scripts.multiband_parity import OUT
+
+        return at("", OUT)
+    if name == "audiooperator":
+        return at(a.out, "metrics.json")
+    if name == "funcsong":
+        return at(a.out, "metrics.json", *(["recon_crop.wav"] if a.iterations else []))
+    if name == "textural":
+        return at(a.out, "metrics.json", "target.wav", *(["recon.wav"] if a.iterations else []))
+    if name == "roomsim":
+        return at(a.out, "recording.wav", "frames.npy", "metrics.json")
+    if name == "phaseinvariance":
+        from mptpu_torch.models.phaseinvariance import TRANSFORMS
+
+        return at(a.out, "source.wav", "metrics.json", "report.html",
+                  *(f"recon_{t}.wav" for t in TRANSFORMS))
     return set()   # resonance_overfit, energy_overfit
+
+
+@contextlib.contextmanager
+def recorded(module, fn, into):
+    """Calls of ``module.fn`` let through, their results kept in ``into``."""
+    real = getattr(module, fn)
+
+    def spy(*args, **kwargs):
+        into.append(real(*args, **kwargs))
+        return into[-1]
+
+    setattr(module, fn, spy)
+    try:
+        yield
+    finally:
+        setattr(module, fn, real)
+
+
+def tree_leaves(tree) -> list:
+    """The arrays of a checkpoint's nested dicts, in key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [np.asarray(tree)]
+
+
+def command_line_run(dev, sync, here, name, argv, problems, want=None, stdin="", code=0):
+    """``main(argv)`` of the command line ``name`` on ``dev``, in the working
+    directory ``here`` (made if absent; what it prints goes to ``here``'s
+    name plus ``.log`` beside it), launch counts set to 0 before and read
+    after: its exit code, host seconds, launches (every kernel 0 but
+    ``want``'s, on a card) and peak memory on one line, and the files it
+    must write (``cli_required``) when it is to exit ``code`` 0. What is off
+    goes to ``problems``. Returns (the launches, what it printed)."""
+    import contextlib
+    import importlib
+    import io
+    import os
+
+    from mptpu_torch import kernels
+
+    on_card = dev.type == "cuda"
+    cwd = os.getcwd()
+    here.mkdir(parents=True, exist_ok=True)
+    os.chdir(here)
+    kernels.reset_launches()
+    peak_reset(dev)
+    module = importlib.import_module(f"mptpu_torch.scripts.{name}")
+    t0 = time.perf_counter()
+    kept_stdin = sys.stdin
+    sys.stdin = io.StringIO(stdin)
+    log_path = here.parent / f"{here.name}.log"
+    try:
+        with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+            got = module.main(list(argv) + ["--device", "cuda" if on_card else "cpu"])
+    finally:
+        sys.stdin = kept_stdin
+        os.chdir(cwd)
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    expected = {k: ((want or {}).get(k, 0) if on_card else 0) for k in launches}
+    written = {str(p.relative_to(here)) for p in here.rglob("*") if p.is_file()}
+    missing = (cli_required(name, argv) - written) if code == 0 else set()
+    print(f"cli {here.name} ({name} {' '.join(argv)}): exit {got}, {seconds:.2f} s (host "
+          f"clock), launches " + ", ".join(f"{k} {v}" for k, v in launches.items())
+          + f", peak memory {peak_gib(dev)}; {len(written)} files")
+    if got != code:
+        problems.append(f"{here.name} exited {got}, not {code}")
+    if launches != expected:
+        problems.append(f"{here.name}: launches {launches}, expected {expected}")
+    if missing:
+        problems.append(f"{here.name}: did not write {sorted(missing)}")
+    return launches, log_path.read_text()
 
 
 def command_lines_phase(dev, cfg, peaks, sync, records):
@@ -5751,9 +5900,6 @@ def command_lines_phase(dev, cfg, peaks, sync, records):
     launch elsewhere; then ``mp_train --tiny`` and ``codec_rate --run`` in
     processes of their own, the latter's first window within 0.01 dB of the
     in-process run's."""
-    import contextlib
-    import importlib
-    import io
     import os
     import shutil
     import subprocess
@@ -5761,7 +5907,7 @@ def command_lines_phase(dev, cfg, peaks, sync, records):
 
     import torch
 
-    from mptpu_torch import convert, kernels
+    from mptpu_torch import convert
     from mptpu_torch.models import mp_train as mt
     from mptpu_torch.models import siam as ts
     from mptpu_torch.train.checkpoint import save_checkpoint
@@ -5805,57 +5951,8 @@ def command_lines_phase(dev, cfg, peaks, sync, records):
                     wire=rate["presets"]["f16"]["wire_first_half_snr_db"],
                     refined=rate["presets"]["f16"]["refined_first_half_snr_db"])
 
-    @contextlib.contextmanager
-    def recorded(module, fn, into):
-        """Calls of ``module.fn`` let through, their results kept in ``into``."""
-        real = getattr(module, fn)
-
-        def spy(*args, **kwargs):
-            into.append(real(*args, **kwargs))
-            return into[-1]
-
-        setattr(module, fn, spy)
-        try:
-            yield
-        finally:
-            setattr(module, fn, real)
-
     def command_line(label, name, argv, want=None, stdin=""):
-        """``main(argv)`` of the command line ``name`` in ``work/label``:
-        its exit code, seconds, launches (every kernel 0 but ``want``) and
-        peak memory on one line; the files it must write."""
-        here = work / label
-        here.mkdir(exist_ok=True)
-        os.chdir(here)
-        kernels.reset_launches()
-        peak_reset(dev)
-        module = importlib.import_module(f"mptpu_torch.scripts.{name}")
-        t0 = time.perf_counter()
-        kept_stdin = sys.stdin
-        sys.stdin = io.StringIO(stdin)
-        try:
-            with open(here.parent / f"{label}.log", "w") as log, contextlib.redirect_stdout(log):
-                code = module.main(list(argv) + ["--device", device])
-        finally:
-            sys.stdin = kept_stdin
-        sync()
-        seconds = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-        expected = {k: ((want or {}).get(k, 0) if on_card else 0) for k in launches}
-        written = {str(p.relative_to(here)) for p in here.rglob("*") if p.is_file()}
-        missing = cli_required(name, argv) - written
-        print(f"cli {label} ({name} {' '.join(argv)}): exit {code}, {seconds:.2f} s (host "
-              f"clock), launches "
-              + ", ".join(f"{k} {v}" for k, v in launches.items())
-              + f", peak memory {peak_gib(dev)}; {len(written)} files")
-        if code != 0:
-            problems.append(f"{label} exited {code}")
-        if launches != expected:
-            problems.append(f"{label}: launches {launches}, expected {expected}")
-        if missing:
-            problems.append(f"{label}: did not write {sorted(missing)}")
-        os.chdir(cwd)
-        return launches
+        return command_line_run(dev, sync, work / label, name, argv, problems, want, stdin)[0]
 
     try:
         t_phase = time.perf_counter()
@@ -6002,10 +6099,415 @@ def command_lines_phase(dev, cfg, peaks, sync, records):
         tmp.cleanup()
 
 
+def train_siam_rank(out: str, argv, threads: int) -> None:
+    """``mptpu_torch.scripts.train_siam``'s ``main(argv)`` in this process,
+    a rank of a group where the environment names one (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``): its exit code, logged
+    losses and final parameters pickled to ``out``. Phase 17 and
+    ``tests/test_torch_scripts_cli_more.py`` start it with ``python -c``."""
+    import pickle
+
+    import torch
+
+    from mptpu_torch.models import siam_train
+    from mptpu_torch.scripts import train_siam
+
+    torch.set_num_threads(threads)
+    runs = []
+    real = siam_train.train_and_monitor
+
+    def kept(**kwargs):
+        runs.append(real(**kwargs))
+        return runs[-1]
+
+    siam_train.train_and_monitor = kept
+    try:
+        code = train_siam.main(list(argv))
+    finally:
+        siam_train.train_and_monitor = real
+    with open(out, "wb") as f:
+        pickle.dump(dict(code=code, losses=runs[0].losses,
+                         params=[p.detach().cpu().numpy() for p in runs[0].model.parameters()]), f)
+
+
+class Processes:
+    """Processes started beside a phase's work, each one's output (stdout and
+    stderr) in ``work/<label>.out``; ``reap`` notes the host clock at which
+    it first sees one ended, so that a process's seconds are known to within
+    the gap between two of its calls."""
+
+    def __init__(self, work: Path):
+        self.work, self.procs, self.started, self.ended = work, {}, {}, {}
+
+    def start(self, label, cmd, cwd, env) -> None:
+        import subprocess
+
+        with open(self.work / f"{label}.out", "w") as out:
+            self.procs[label] = subprocess.Popen(cmd, cwd=str(cwd), env=env, stdout=out,
+                                                 stderr=subprocess.STDOUT)
+        self.started[label] = time.perf_counter()
+
+    def reap(self) -> None:
+        for label, proc in self.procs.items():
+            if label not in self.ended and proc.poll() is not None:
+                self.ended[label] = time.perf_counter()
+
+    def wait(self, label, timeout: float = 900):
+        """(exit code, output, seconds from its start to its end) of ``label``."""
+        self.procs[label].wait(timeout=timeout)
+        self.reap()
+        return (self.procs[label].returncode, (self.work / f"{label}.out").read_text(),
+                self.ended[label] - self.started[label])
+
+    def kill(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def start_train_siam_ranks(procs: Processes, work: Path, argv, world: int, env: dict,
+                           threads: int) -> None:
+    """``train_siam_rank`` once as one process (label ``one``, in
+    ``work/one``) and in ``world`` ranks of one gloo group meeting on a free
+    port of localhost (label ``rank<r>``, in ``work/rank<r>``), all started
+    at once; their records go to ``work/<label>.pkl``."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for r in ["one"] + list(range(world)):
+        label = r if r == "one" else f"rank{r}"
+        (work / label).mkdir(parents=True)
+        e = {k: v for k, v in env.items()
+             if k not in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+        if r != "one":
+            e.update(RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(world),
+                     MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        code = (f"import chip_smoke; chip_smoke.train_siam_rank("
+                f"{str(work / (label + '.pkl'))!r}, {list(argv)!r}, {threads})")
+        procs.start(label, [sys.executable, "-c", code], work / label, e)
+
+
+def train_siam_records(procs: Processes, work: Path, world: int, timeout: float = 600) -> dict:
+    """{"one" or r: the record} of ``start_train_siam_ranks``' processes,
+    waited for; raises when one fails."""
+    import pickle
+
+    labels = {r: (r if r == "one" else f"rank{r}") for r in ["one"] + list(range(world))}
+    records = {}
+    for r, label in labels.items():
+        code, out, _ = procs.wait(label, timeout)
+        if code:
+            raise RuntimeError(f"train_siam {label} exited {code}: {out[-2000:]}")
+        with open(work / f"{label}.pkl", "rb") as f:
+            records[r] = pickle.load(f)
+    return records
+
+
+def train_siam_ranks(work: Path, argv, world: int, env: dict, threads: int,
+                     timeout: float = 600) -> dict:
+    """``start_train_siam_ranks`` and ``train_siam_records`` in one call;
+    no process outlives it."""
+    work.mkdir(parents=True, exist_ok=True)
+    procs = Processes(work)
+    try:
+        start_train_siam_ranks(procs, work, argv, world, env, threads)
+        return train_siam_records(procs, work, world, timeout)
+    finally:
+        procs.kill()
+
+
+def more_command_lines_phase(dev, cfg, peaks, sync, records):
+    """Phase 17, the eleven remaining command lines (ROADMAP A12b) through
+    ``main(argv)`` on ``dev`` and ``train_siam`` across ranks, each command
+    line in a working directory of its own, launch counts set to 0 before
+    each and read after it: exit code, host seconds, launches and peak
+    memory, and the files each writes under the script's names.
+    ``siam_overfit`` with sw6's launch flags (finite losses, ``metrics.json``
+    and a checkpoint; resumed in a process of its own from that checkpoint's
+    step; ``--commit-artifacts`` exits 1 and writes nothing); the three
+    evaluations on sw6's checkpoint (the refinement within 0.01 dB of phase
+    15's reading, ``cfg["sw6_refine"]``); ``report_generalization`` on the
+    tree's medium quality run; ``multiband_parity`` (the cluster step
+    kernel's launches; its SNRs against a direct ``parity_trajectory``
+    call); the four trainers and the room (finite losses); ``train_siam``
+    under ``torchrun`` (one rank, NCCL on a card) against the same flags in
+    this process, and on two gloo ranks on the CPU (their parameters
+    identical bit for bit, their losses against one process on the whole
+    batch, only rank 0 writing). The processes (``torchrun``, the ranks, the
+    resume) run beside the command lines in this one."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mptpu_torch import convert
+    from mptpu_torch.data import datastore
+    from mptpu_torch.data.kv import KVCollection
+    from mptpu_torch.models import multiband_parity as mbp
+    from mptpu_torch.models import overfit_refine_eval as ore
+    from mptpu_torch.models import siam as ts
+    from mptpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    on_card = dev.type == "cuda"
+    device = "cuda" if on_card else "cpu"
+    K4 = "cuda_fused_step_pipelined"
+    tol = CLI_MORE_TOL
+    tmp = tempfile.TemporaryDirectory()
+    work = Path(tmp.name)
+    saved = {k: os.environ.get(k) for k in ("MPTPU_CACHE", "AUDIO_PATH")}
+    os.environ.pop("AUDIO_PATH", None)
+    os.environ["MPTPU_CACHE"] = str(work / "cache")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    kept_widths, kept_config = dict(ore.WIDTHS), mbp.CONFIG
+    problems = []
+    procs = Processes(work)
+
+    def run(label, name, argv, want=None, code=0):
+        got = command_line_run(dev, sync, work / label, name, argv, problems, want, code=code)
+        procs.reap()
+        return got
+
+    def finite(values) -> bool:
+        return bool(values) and all(np.isfinite(v) for v in values)
+
+    def losses_of(label, out, key="losses"):
+        """The [step, loss] pairs of ``out``'s ``metrics.json``, checked finite."""
+        path = work / label / out / "metrics.json"
+        got = [v for _, v in json.loads(path.read_text())[key]] if path.exists() else []
+        if not finite(got):
+            problems.append(f"{label}: losses {got} are not all finite")
+        return got
+
+    try:
+        t_phase = time.perf_counter()
+        ore.WIDTHS.update(cfg["eval_widths"] or {})
+        W = ore.WIDTHS
+        datastore._resolve_path(None)   # the demo corpus, once, before any process reads it
+
+        # the processes start first and run beside the command lines in this one: train_siam
+        # under torchrun (one rank, NCCL on a card) and on two gloo ranks beside one process
+        flags = ["--tiny", "--iterations", str(cfg["train_iterations"]), "--data-parallel",
+                 "--port", "0", "--seed", "0", "--log-every", "1", "--save-weights"]
+        (work / "train_siam_torchrun").mkdir()
+        # the launcher sets one thread a rank unless told; the CPU's sums follow the threads
+        procs.start("torchrun", [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                 "--nproc-per-node", "1", "-m", "mptpu_torch.scripts.train_siam"]
+                    + flags + ["--device", device], work / "train_siam_torchrun",
+                    dict(env, OMP_NUM_THREADS=str(torch.get_num_threads())))
+        start_train_siam_ranks(procs, work / "ranks", flags + ["--device", "cpu"], cfg["ranks"],
+                               env, cfg["threads"])
+
+        # (a) siam_overfit with sw6's flags, resumed in a process of its own, and the refused flag
+        o = cfg["overfit"]
+        base = SW6_LAUNCH + (["--tiny"] if cfg["tiny"] else []) + [
+            "--eval-every", str(o["eval_every"]), "--walk-eval-every", str(o["walk_every"]),
+            "--out", "run"]
+        run("siam_overfit", "siam_overfit", base + ["--iterations", str(o["iterations"])])
+        here = work / "siam_overfit"
+        losses = losses_of("siam_overfit", "run")
+        metrics = json.loads((here / "run" / "metrics.json").read_text())
+        snrs = [e["first_half_snr_db"] for e in metrics["eval"]] + [
+            w["refit_full_snr_db"] for w in metrics.get("walk", [])]
+        print(f"cli siam_overfit with sw6's flags: losses {losses}, eval and walk SNRs {snrs} dB")
+        if not finite(snrs) or not metrics.get("walk"):
+            problems.append(f"siam_overfit: eval and walk SNRs {snrs}")
+        procs.start("resume", [sys.executable, "-m", "mptpu_torch.scripts.siam_overfit"] + base
+                    + ["--iterations", str(o["resume"]), "--resume", "--device", device], here,
+                    env)
+        run("siam_overfit_commit", "siam_overfit", base + ["--iterations", "1",
+                                                          "--commit-artifacts"], code=1)
+        if any((work / "siam_overfit_commit").rglob("*")):
+            problems.append("siam_overfit --commit-artifacts wrote files")
+
+        # (b) the evaluations on sw6's checkpoint (or seeded parameters at their widths)
+        sw6 = ROOT / cfg["sw6"] if cfg["sw6"] else None
+        src = work / "sw6"
+        src.mkdir()
+        if sw6 is not None and (sw6 / "ema_best.pkl").exists():
+            for f in ("ema_best.pkl", "metrics.json"):
+                shutil.copyfile(sw6 / f, src / f)
+        else:
+            sw6 = None
+            model = ts.SIAMModel(n_samples=W["n_samples"], context_dim=W["context_dim"],
+                                 in_channels=W["window"] // 2 + 1, hidden_channels=W["hidden"],
+                                 n_events=W["n_events"], transform_window_size=W["window"],
+                                 transform_step_size=W["step"], fft_resonance=True,
+                                 generator=torch.Generator().manual_seed(1), device="cpu")
+            save_checkpoint(str(src / "ema_best.pkl"), convert.module_to_flax(model), None, 0)
+            (src / "metrics.json").write_text(json.dumps({"config": (
+                f"overfit 1 segment seed 3, n_samples 2^{int(np.log2(W['n_samples']))}, "
+                f"{W['n_events']} events, STFT {W['window']}/{W['step']}, fixed_noise True")}))
+        for label in ("overfit_refine_eval", "overfit_diag", "holdout_anatomy"):
+            shutil.copytree(src, work / label / "run")
+        shutil.copyfile(src / "ema_best.pkl", work / "holdout_anatomy" / "run" /
+                        "ckpt_000000000.pkl")
+        on_ckpt = ["--run", "run", "--ckpt", "run/ema_best.pkl"]
+        run("overfit_refine_eval", "overfit_refine_eval", on_ckpt)
+        refine = json.loads((work / "overfit_refine_eval" / "run" / "refine_eval.json").read_text())
+        run("overfit_diag", "overfit_diag", on_ckpt)
+        diag = json.loads((work / "overfit_diag" / "run" / "diag.json").read_text())
+        run("holdout_anatomy", "holdout_anatomy", ["--run", "run"])
+        anatomy = json.loads((work / "holdout_anatomy" / "run" / "anatomy.json").read_text())
+        keys = [f"{k}_first_half_snr_db" for k in ("raw", "refit", "aligned")]
+        print(f"cli evaluations on {'sw6' if sw6 else 'seeded parameters'}: refine "
+              + " / ".join(str(refine[k]) for k in keys) + f" dB; diag wave "
+              f"{diag['wave_snr_db']}, magnitude {diag['mag_spec_snr_db']} dB, "
+              f"{diag['alive_events']} alive; anatomy as placed {anatomy['as_placed_snr_db']}, "
+              f"oracle place {anatomy['oracle_place_snr_db']} dB")
+        if not finite([refine[k] for k in keys] + [diag["wave_snr_db"],
+                                                   anatomy["oracle_place_snr_db"]]):
+            problems.append("the evaluations' SNRs are not finite")
+        reading = cfg.get("sw6_refine")
+        if sw6 is not None and reading:
+            off = {k: round(abs(refine[k] - reading[k]), 4) for k in keys}
+            print(f"cli overfit_refine_eval on sw6 against phase 15's reading "
+                  f"{[round(reading[k], 4) for k in keys]} dB: {off} apart (gate "
+                  f"{SCRIPTS_TOL['db']} dB)")
+            if max(off.values()) > SCRIPTS_TOL["db"]:
+                problems.append(f"overfit_refine_eval: off phase 15's reading by {off}")
+        else:
+            print("cli overfit_refine_eval: no phase 15 reading of sw6 to hold it to")
+
+        # (c) the generalization page of the tree's medium quality run (the fresh one is absent)
+        runs = work / "report_generalization" / "trained_weights"
+        (runs / "siam_quality_medium").mkdir(parents=True)
+        medium = ROOT / "trained_weights" / "siam_quality_medium" / "metrics.json"
+        if medium.exists():
+            shutil.copyfile(medium, runs / "siam_quality_medium" / "metrics.json")
+        else:
+            (runs / "siam_quality_medium" / "metrics.json").write_text(json.dumps(
+                {"eval": [{"step": 0, "first_half_lsd_db": 30.0}], "losses": []}))
+        _, out = run("report_generalization", "report_generalization", [])
+        if "skip siam_quality_fresh: no metrics.json" not in out.splitlines():
+            problems.append("report_generalization did not skip the absent fresh run")
+
+        # (d) the multiband trajectory: the cluster step kernel's launches, SNRs as a direct call's
+        mb = cfg["multiband"]
+        mbp.CONFIG = dict(kept_config, **mb["config"])
+        steps, bands = mbp.CONFIG["steps"], len(mbp.CONFIG["sizes"])
+        traj = []
+        with recorded(mbp, "parity_trajectory", traj):
+            launches, _ = run("multiband_parity", "multiband_parity",
+                              ["--iterations", str(mb["iterations"]), "--steps", str(steps)],
+                              {K4: steps * bands * (2 * mb["iterations"] + 1)})
+        records[K4]["launches_cli_multiband_parity"] = launches[K4]
+        # two direct calls: the learning step's index_add_ sums in no fixed order on a card
+        got, want, again = ([r["ours_snr_db"] for r in t["rows"]] for t in (
+            traj[0], *(mbp.parity_trajectory(mb["iterations"], device=dev, steps=steps,
+                                             log=lambda line: None, sync=sync)
+                       for _ in range(2))))
+        off = max(abs(a - b) for a, b in zip(got, want, strict=True))
+        spread = max(abs(a - b) for a, b in zip(again, want, strict=True))
+        print(f"cli multiband_parity: SNRs {[round(float(v), 4) for v in got]} dB, a direct "
+              f"parity_trajectory call's {off:.2e} dB from them (gate {tol['parity']:g}; a "
+              f"second direct call {spread:.2e} from the first); cluster step kernel launches "
+              f"{launches[K4]}")
+        if off > tol["parity"]:
+            problems.append(f"multiband_parity: {off} dB off a direct call")
+
+        # (e) the trainers at their default widths, the iterations cut, and the room
+        it = ["--iterations", str(cfg["iterations"])]
+        small = cfg["tiny"]
+        run("audiooperator", "audiooperator", it + (["--smoke"] if small else []))
+        run("funcsong", "funcsong", it + (["--smoke", "--song-seconds", "2"] if small else []))
+        run("textural", "textural", it + (["--smoke"] if small else []))
+        room = ["--n-frames", str(cfg["room_frames"])] if cfg["room_frames"] else []
+        run("roomsim", "roomsim", room + ["--overfit-steps", str(cfg["iterations"])])
+        run("phaseinvariance", "phaseinvariance",
+            it + (["--n-samples", str(cfg["phase_samples"])] if cfg["phase_samples"] else []))
+        trained = {name: losses_of(name, f"trained_weights/{name}", key)
+                   for name, key in (("audiooperator", "losses"), ("funcsong", "losses"),
+                                     ("textural", "losses"), ("roomsim", "overfit_losses"))}
+        phase = json.loads((work / "phaseinvariance" / "trained_weights" / "phaseinvariance"
+                            / "metrics.json").read_text())
+        trained["phaseinvariance"] = [r["final_loss"] for r in phase.values()]
+        if not finite(trained["phaseinvariance"]):
+            problems.append(f"phaseinvariance: final losses {trained['phaseinvariance']}")
+        print("cli the trainers' logged losses: " + "; ".join(
+            f"{k} {[float(f'{v:.6g}') for v in vals]}" for k, vals in trained.items()))
+
+        # (f) the processes: the resume, then train_siam under torchrun against this process
+        code, out, seconds = procs.wait("resume")
+        ckpt = work / "siam_overfit" / "run" / f"ckpt_{o['resume'] - 1:09d}.pkl"
+        step = load_checkpoint(str(ckpt))["step"] if ckpt.exists() else None
+        resumed = f"resumed from step {o['iterations'] - 1}" in out.splitlines()
+        print(f"cli process siam_overfit --resume --iterations {o['resume']}: exit {code}, "
+              f"{seconds:.1f} s (host clock, the start included, beside the phase's other work), "
+              f"resumed from step {o['iterations'] - 1}: {resumed}, its last checkpoint's step "
+              f"{step}")
+        if code or not resumed or step != o["resume"] - 1:
+            problems.append(f"siam_overfit --resume: exit {code}, resumed {resumed}, step "
+                            f"{step}: {out[-1500:]}")
+        run("train_siam_one", "train_siam", flags)
+        here = work / "train_siam_torchrun"
+        code, out, seconds = procs.wait("torchrun", 600)
+        print(f"cli process torchrun --nproc-per-node 1 train_siam {' '.join(flags)}: exit "
+              f"{code}, {seconds:.1f} s (host clock, the start included, beside the phase's "
+              "other work)")
+        dash = "trained_weights/siam_dashboard"
+        if code:
+            problems.append(f"torchrun train_siam exited {code}: {out[-1500:]}")
+        else:
+            one, ranked = (np.asarray(KVCollection(str(d / dash)).get("v:loss:latest"))
+                           for d in (work / "train_siam_one", here))
+            loss_off = float(np.max(np.abs(ranked - one) / np.abs(one)))
+            trees = [load_checkpoint(str(d / "trained_weights/siam/ckpt_000000000.pkl"))["params"]
+                     for d in (work / "train_siam_one", here)]
+            param_off = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+                            for a, b in zip(*map(tree_leaves, trees), strict=True))
+            # not gated: Adam takes the float32 noise of a gradient near 0 to a full step
+            print(f"cli torchrun train_siam against this process: losses {ranked.tolist()} and "
+                  f"{one.tolist()} ({loss_off:.2e} apart, relative; gate {tol['torchrun']:g}), "
+                  f"step 0's checkpoint {param_off:.2e} of each leaf's largest apart")
+            if ranked.shape != one.shape or loss_off > tol["torchrun"]:
+                problems.append(f"torchrun train_siam: losses {loss_off} off this process's")
+
+        # (g) two gloo ranks on the CPU against one process on the whole batch
+        ranks = train_siam_records(procs, work / "ranks", cfg["ranks"])
+        seconds = max(procs.ended[k] for k in procs.ended if k == "one" or k.startswith("rank")) \
+            - procs.started["one"]
+        lead, one = ranks[0], ranks["one"]
+        same = all(all(np.array_equal(a, b) for a, b in zip(lead["params"], r["params"],
+                                                            strict=True))
+                   for k, r in ranks.items() if k != "one")
+        loss_off = max(abs(a - b) / abs(b) for a, b in zip(lead["losses"], one["losses"],
+                                                           strict=True))
+        wrote = {k: sum(1 for p in (work / "ranks" / f"rank{k}").rglob("*") if p.is_file())
+                 for k in ranks if k != "one"}
+        print(f"cli {cfg['ranks']} gloo ranks of train_siam {' '.join(flags)} --device cpu: "
+              f"{seconds:.1f} s (host clock, the starts included, beside the phase's other "
+              f"work); parameters {'identical bit for bit' if same else 'DIFFER'} across the "
+              f"ranks; losses {lead['losses']} against one process's {one['losses']} "
+              f"({loss_off:.2e} apart, relative; gate {tol['ranks']:g}); files written by rank "
+              f"{wrote}")
+        if not same or loss_off > tol["ranks"] or not wrote[0] or any(
+                n for k, n in wrote.items() if k):
+            problems.append(f"gloo ranks: identical {same}, losses {loss_off} apart, files "
+                            f"{wrote}")
+        print(f"cli: the phase took {time.perf_counter() - t_phase:.1f} s (host clock)")
+        if problems:
+            fail("cli more: " + " | ".join(problems))
+    finally:
+        procs.kill()
+        ore.WIDTHS.clear()
+        ore.WIDTHS.update(kept_widths)
+        mbp.CONFIG = kept_config
+        for key, v in saved.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
+        tmp.cleanup()
+
+
 def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM, ssm=SSM,
         siam_train=SIAM_TRAIN, models=MODELS, longtail=LONGTAIL, perceptual=PERCEPTUAL, zoo=ZOO,
-        entry=ENTRY, scripts=SCRIPTS, cli=CLI):
-    """Phases 2-16 on device ``dev``; returns the kernels' records."""
+        entry=ENTRY, scripts=SCRIPTS, cli=CLI, cli_more=CLI_MORE):
+    """Phases 2-17 on device ``dev``; returns the kernels' records."""
     import torch
     import torch.nn.functional as F
 
@@ -6429,9 +6931,12 @@ def run(dev, cfg, peaks, sync, mb=MULTIBAND, splat=SPLAT, siam=SIAM, ssm=SSM,
 
     entry_points_phase(dev, entry, peaks, sync, records)
 
-    last_scripts_phase(dev, scripts, peaks, sync, records)
+    readings = last_scripts_phase(dev, scripts, peaks, sync, records)
 
     command_lines_phase(dev, dict(cli, sw6=scripts["sw6"]), peaks, sync, records)
+
+    more_command_lines_phase(dev, dict(cli_more, sw6=scripts["sw6"],
+                                       sw6_refine=readings.get("refine")), peaks, sync, records)
 
     # ---- phase 5: per-kernel times
     fm, bm, res = encode_state(sig_b, d2_b, geom)

@@ -40,7 +40,7 @@ from ..ops import kinks
 from ..ops.stft import stft
 from ..ops.windows import linspace
 from ..train.optim import Adam, AdamState
-from ..utils.wav import write_wav
+from ..utils.wav import read_wav, write_wav
 
 
 class DampedOscillatorBank(nn.Module):
@@ -238,18 +238,25 @@ def train_funcsong(song_seconds: float = 30.0, iterations: int = 2000, batch_siz
                    segment_samples: int = 2**15, pos_channels: int = 256, hidden: int = 256,
                    layers: int = 4, lr: float = 1e-3, seed: int = 0,
                    out: str | None = "trained_weights/funcsong", smoke: bool = False,
-                   device=None,
+                   path: str | None = None, device=None,
                    log: Callable[[str], None] = print) -> FuncSongRun:
     """``scripts/funcsong.py:main`` with its flags as keywords (``smoke``
-    its ``--smoke`` sizes; the synthetic song, there being no ``--path``):
-    fit a :class:`FuncSong` (seeded with ``seed``) by optax's Adam on crops
-    whose starts ``np.random.default_rng(seed)`` draws, as the script does;
-    with ``out``, ``recon_crop.wav`` and ``metrics.json`` written there."""
+    its ``--smoke`` sizes; ``path`` a WAV to fit, mixed down to mono, else
+    the synthetic song of ``song_seconds``): fit a :class:`FuncSong`
+    (seeded with ``seed``) by optax's Adam on crops whose starts
+    ``np.random.default_rng(seed)`` draws, as the script does; with
+    ``out``, ``recon_crop.wav`` (at the song's rate) and ``metrics.json``
+    written there."""
     dev = default_device(device)
     if smoke:
         segment_samples, pos_channels = SMOKE["segment_samples"], SMOKE["pos_channels"]
         hidden, layers, batch_size = SMOKE["hidden"], SMOKE["layers"], SMOKE["batch_size"]
-    song = funcsong_song(song_seconds, seed)
+    samplerate = 22050
+    if path:
+        song, samplerate = read_wav(path)
+        song = np.asarray(song, dtype=np.float32).reshape(-1)
+    else:
+        song = funcsong_song(song_seconds, seed)
     total = len(song)
     song_t = torch.from_numpy(song).to(dev)
     model = FuncSong(segment_samples, pos_channels, hidden, layers,
@@ -278,7 +285,8 @@ def train_funcsong(song_seconds: float = 30.0, iterations: int = 2000, batch_siz
     if out:
         os.makedirs(out, exist_ok=True)
         if recon is not None:
-            write_wav(os.path.join(out, "recon_crop.wav"), recon[0, 0].cpu().numpy(), 22050)
+            write_wav(os.path.join(out, "recon_crop.wav"), recon[0, 0].cpu().numpy(),
+                      samplerate)
         with open(os.path.join(out, "metrics.json"), "w") as f:
             json.dump({"n_params": n_params, "total_samples": total, "compression_ratio": ratio,
                        "losses": logged, "steps_per_s": iterations / max(elapsed, 1e-9)}, f,

@@ -176,13 +176,14 @@ def event_rows(target: np.ndarray, other: np.ndarray, channels: np.ndarray) -> t
 
 def anatomy(run: str, out: str, holdout_dir: Optional[str] = None, align: int = 256,
             noise: Optional[torch.Tensor] = None, device=None,
-            log: Callable[[str], None] = print) -> dict:
+            log: Callable[[str], None] = print, path: Optional[str] = None) -> dict:
     """The script's summary of the newest checkpoint of ``run``, written
-    into ``out``'s ``anatomy.json``, and returned. ``holdout_dir``: where the
-    held-out corpus is (written there when absent; default ``out``'s
-    ``dense_corpus_holdout``). ``noise``: the decoder's draw (n_events, 1,
-    1, noise size), from a generator seeded 42 with the run's fixed noise,
-    else 7, when None. ``device``: ``cuda`` unless ``"cpu"``."""
+    to ``path`` (default ``out``'s ``anatomy.json``), and returned.
+    ``holdout_dir``: where the held-out corpus is (written there when
+    absent; default ``out``'s ``dense_corpus_holdout``). ``noise``: the
+    decoder's draw (n_events, 1, 1, noise size), from a generator seeded 42
+    with the run's fixed noise, else 7, when None. ``device``: ``cuda``
+    unless ``"cpu"``."""
     dev = default_device(device)
     cfg = parse_run_config(run)
     n_samples, n_events = cfg["n_samples"], cfg["n_events"]
@@ -233,7 +234,7 @@ def anatomy(run: str, out: str, holdout_dir: Optional[str] = None, align: int = 
         if alive else None,
         "events": rows,
     }
-    path = os.path.join(out, "anatomy.json")
+    path = path or os.path.join(out, "anatomy.json")
     with open(path, "w") as f:
         json.dump(summary, f, indent=1)
     for k in ("as_placed_snr_db", "oracle_gain_snr_db", "oracle_align_snr_db",

@@ -105,13 +105,13 @@ def recon_snr_db(model, batch: torch.Tensor, steps: int) -> float:
 
 def parity_trajectory(iterations: int = 10, device=None, reference: Optional[str] = None,
                       log: Callable[[str], None] = print, sync: Callable[[], None] = lambda: None,
-                      **config) -> dict:
+                      on_row: Callable[[dict], None] = lambda row: None, **config) -> dict:
     """The script's rows, one per iteration (0 before any learning):
     ``ours_snr_db`` (the port on ``device``), ``ours_learn_s`` (host clock,
     ``sync`` called before reading it), and where ``reference`` is a
-    directory also ``ref_snr_db``, ``delta_db`` and ``ref_learn_s``.
-    ``config`` overrides ``CONFIG``'s keys. ``device``: ``cuda`` unless
-    ``"cpu"``."""
+    directory also ``ref_snr_db``, ``delta_db`` and ``ref_learn_s``; each
+    row goes to ``on_row`` as it is made. ``config`` overrides ``CONFIG``'s
+    keys. ``device``: ``cuda`` unless ``"cpu"``."""
     unknown = set(config) - set(CONFIG)
     if unknown:
         raise TypeError(f"unknown settings {sorted(unknown)}")
@@ -155,6 +155,7 @@ def parity_trajectory(iterations: int = 10, device=None, reference: Optional[str
                 row["ref_snr_db"] = recon_snr_db(ref_model, ref_batch, steps)
                 row["delta_db"] = row["ours_snr_db"] - row["ref_snr_db"]
             rows.append(row)
+            on_row(row)
             log(" ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
                          for k, v in row.items()))
     return {"config": (f"{len(c['sizes'])} bands {c['sizes'][0]}..{c['sizes'][-1]}, {n_atoms} "

@@ -12,7 +12,7 @@ from __future__ import annotations
 import html
 import json
 import os
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -144,15 +144,18 @@ INTRO = (
 
 
 def make_generalization_report(runs: Sequence[Tuple[str, str]], out_path: str,
-                               log: Callable[[str], None] = print) -> List[_Raw]:
+                               log: Callable[[str], None] = print,
+                               root: Optional[str] = None) -> List[_Raw]:
     """The page of ``runs`` ((run directory, label) pairs; an empty label
     takes the directory's name), written to ``out_path``; returns its
-    components. A run without ``metrics.json`` or without evals is skipped;
-    raises when none is left."""
+    components. With ``root`` the directories are named under it, and a
+    run's name is the one given (the script's ``--runs`` under
+    ``trained_weights``). A run without ``metrics.json`` or without evals is
+    skipped; raises when none is left."""
     loaded = []
     for i, (d, label) in enumerate(runs):
-        path = os.path.join(d, "metrics.json")
-        name = os.path.basename(os.path.normpath(d))
+        path = os.path.join(root or "", d, "metrics.json")
+        name = d if root else os.path.basename(os.path.normpath(d))
         if not os.path.exists(path):
             log(f"skip {name}: no metrics.json")
             continue

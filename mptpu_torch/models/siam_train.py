@@ -60,13 +60,13 @@ def siam_train_loss(model: SIAMModel, window: int, step: int):
 @dataclass
 class SIAMTrainResult:
     """The trained model, the losses logged every ``log_every`` steps, the
-    reservoir, the collection, and the host clock at the start of each
-    step (the last entry at the loop's end)."""
+    reservoir, the collection (None without a dashboard), and the host
+    clock at the start of each step (the last entry at the loop's end)."""
 
     model: SIAMModel
     losses: List[float]
     reservoir: Reservoir
-    collection: Collection
+    collection: Optional[Collection]
     step_starts: List[float] = field(default_factory=list)
 
 
@@ -77,7 +77,7 @@ def train_and_monitor(
     attn_leak: float = 0.0, switch_clamp: float = 100.0, residual_clamp: float = 4.0,
     encoder_clamp: float = 1e4, log_every: int = 10, seed: Optional[int] = None,
     selection_leak: float = 0.0, device=None,
-    dashboard: str = os.path.join("trained_weights", "siam_dashboard"),
+    dashboard: Optional[str] = os.path.join("trained_weights", "siam_dashboard"),
     checkpoint_dir: str = os.path.join("trained_weights", "siam"),
     log: Callable[[str], None] = print,
 ) -> SIAMTrainResult:
@@ -87,7 +87,8 @@ def train_and_monitor(
     draw per item) and the previews' draws from a generator seeded 0
     (``mptpu`` folds the step into a key), the
     dashboard's and the checkpoints' directories (the script's, relative
-    to the working directory, by default). ``data_parallel`` needs a
+    to the working directory, by default; ``dashboard=None`` logs to no
+    dashboard, as a data-parallel rank other than 0). ``data_parallel`` needs a
     ``torch.distributed`` process group: the batch is cut over its ranks
     and their gradients summed; every rank must pass the same batches
     (the same ``seed``)."""
@@ -116,8 +117,8 @@ def _train(a: dict, dev: torch.device) -> SIAMTrainResult:
     stream = AudioIterator(batch_size=a["batch_size"], n_samples=n_samples, samplerate=22050,
                            normalize=True, overfit=a["overfit"], audio_path=a["audio_path"],
                            seed=a["seed"], device=dev)
-    collection = Collection(a["dashboard"])
-    server = serve_collection(collection, port=a["port"]) if a["port"] else None
+    collection = Collection(a["dashboard"]) if a["dashboard"] else None
+    server = serve_collection(collection, port=a["port"]) if a["port"] and collection else None
 
     opt = Adam(lr=1e-4, b1=0.9, b2=0.999)
     params = list(model.parameters())
@@ -172,13 +173,15 @@ def _train(a: dict, dev: torch.device) -> SIAMTrainResult:
                 losses.append(loss)
                 log(f"iter {i} loss {loss:.4f} ({time.time() - t0:.2f}s)")
                 reservoir.update(vecs.detach().cpu().numpy())
-                collection.log("orig", item[0, 0], kind="audio")
-                collection.log("recon", torch.sum(channels.detach(), dim=1)[0], kind="audio")
-                collection.log("loss", np.asarray(losses[-200:]))
+                if collection is not None:
+                    collection.log("orig", item[0, 0], kind="audio")
+                    collection.log("recon", torch.sum(channels.detach(), dim=1)[0], kind="audio")
+                    collection.log("loss", np.asarray(losses[-200:]))
             if i % 100 == 0 and i > 0:
                 rvecs = torch.from_numpy(reservoir.sample(1, n_events)).to(dev)
                 rand_audio, _, _ = random_seq(rvecs, generator=gen)
-                collection.log("random", torch.sum(rand_audio, dim=1)[0], kind="audio")
+                if collection is not None:
+                    collection.log("random", torch.sum(rand_audio, dim=1)[0], kind="audio")
             if a["save_weights"] and i % ckpt.every == 0:
                 ckpt.maybe_save(i, convert.module_to_flax(model), adam_state_tree(opt_state, names))
         starts.append(time.perf_counter())

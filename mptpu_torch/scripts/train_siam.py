@@ -7,18 +7,35 @@ working directory.
     python -m mptpu_torch.scripts.train_siam [--tiny] [--iterations N]
         [--port 9999] [--save-weights] [--load-weights] [--device cuda]
 
-The command line runs as one process, so ``--data-parallel`` trains on
-the whole batch, as the script does on one device. Cutting the batch over
-several cards from the command line (a ``torchrun`` group) is not ported
-(ROADMAP A12b); ``models.siam_train.train_and_monitor(data_parallel=True)``
-does it for a caller that has joined a process group.
+Started as one process, ``--data-parallel`` trains on the whole batch, as
+the script does on one device. Started as one rank of several by a
+launcher that describes the group in the environment (``WORLD_SIZE`` above
+1, or ``RANK`` set, as ``torchrun`` does) with ``--data-parallel``, it
+joins that group (NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device
+cpu``), cuts each batch over the ranks and sums their gradients, as the
+script shards the batch over the devices it sees:
+
+    torchrun --standalone --nproc-per-node 4 -m mptpu_torch.scripts.train_siam \\
+        --data-parallel [--seed S] [...]
+
+Every rank streams the same batches (``--seed``, or a seed that rank 0
+draws and sends to the others); rank 0 alone prints, serves the dashboard
+and writes the dashboard and the checkpoints, the counterpart of the
+script's one process. The group is left on every way out.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..data import datastore
+from ..device import default_device
 from ..models import siam_train
 from .common import add_device
 
@@ -60,9 +77,35 @@ def build_parser() -> argparse.ArgumentParser:
     return add_device(parser)
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    siam_train.train_and_monitor(
+def launched_as_rank() -> bool:
+    """Whether a launcher started this process as one rank of a group."""
+    return int(os.environ.get("WORLD_SIZE", "1")) > 1 or "RANK" in os.environ
+
+
+def join_group(device: str) -> torch.device:
+    """Join the group the launcher's environment describes (``MASTER_ADDR``,
+    ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``): NCCL on
+    ``cuda:LOCAL_RANK``, or gloo on the CPU. Returns this rank's device."""
+    dev = default_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", init_method="env://")
+    else:
+        dist.init_process_group("gloo", init_method="env://")
+    return dev
+
+
+def shared_seed(seed) -> int:
+    """The data seed of every rank: ``seed``, or one that rank 0 draws."""
+    box = [seed if seed is not None else int(np.random.SeedSequence().entropy % 2**63)]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def train(args, **kwargs) -> siam_train.SIAMTrainResult:
+    """``train_and_monitor`` with the script's flags; ``kwargs`` override."""
+    flags = dict(
         batch_size=args.batch_size,
         overfit=args.overfit,
         port=args.port,
@@ -82,6 +125,26 @@ def main(argv=None) -> int:
         selection_leak=args.selection_leak,
         device=args.device,
     )
+    return siam_train.train_and_monitor(**dict(flags, **kwargs))
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if not (args.data_parallel and launched_as_rank()):
+        train(args)
+        return 0
+    device = join_group(args.device)
+    try:
+        lead = dist.get_rank() == 0
+        seed = shared_seed(args.seed)
+        if lead:   # the demo corpus, when it is read, is written once, before any rank reads it
+            datastore._resolve_path(args.audio_path)
+        dist.barrier()
+        quiet = {} if lead else dict(port=0, save_weights=False, dashboard=None,
+                                     log=lambda line: None)
+        train(args, data_parallel=True, seed=seed, device=device, **quiet)
+    finally:
+        dist.destroy_process_group()
     return 0
 
 

@@ -1,7 +1,8 @@
 """The port's command lines (``mptpu_torch.scripts``) against the sixteen
 scripts of ``README.md``'s entry points, on the CPU.
 
-- Parsers: each script's own parser, captured by loading the script with
+- Parsers (of those and of the eleven other scripts with one, ``A12B``):
+  each script's own parser, captured by loading the script with
   ``argparse.ArgumentParser.parse_args`` patched to record the parser and
   stop, against the module's ``build_parser()``, action for action; the
   port adds ``--device`` alone.
@@ -54,6 +55,11 @@ ROOT = Path(__file__).resolve().parent.parent
 SCRIPTS = ("mp_train", "codec_rate", "overfit_stream_eval", "train_siam", "siam_quality",
            "build_index", "splat", "ssm_article", "songsplat", "instrument",
            "resonance_overfit", "energy_overfit", "texture", "report", "worker", "experiment")
+# the eleven remaining scripts with a parser (ROADMAP A12b); their runs are
+# tests/test_torch_scripts_cli_more.py's
+A12B = ("siam_overfit", "overfit_refine_eval", "overfit_diag", "holdout_anatomy",
+        "report_generalization", "multiband_parity", "audiooperator", "funcsong", "textural",
+        "roomsim", "phaseinvariance")
 ATTRS = ("option_strings", "dest", "default", "type", "choices", "nargs", "const", "required",
          "help", "metavar")
 # the seeded tiny SIAM checkpoint of tests/test_torch_codec_rate.py
@@ -170,7 +176,7 @@ def port_module(name):
     return importlib.import_module(f"mptpu_torch.scripts.{name}")
 
 
-@pytest.mark.parametrize("name", SCRIPTS)
+@pytest.mark.parametrize("name", SCRIPTS + A12B)
 def test_parser_is_the_scripts(name):
     want = {a.dest: a for a in script_parser(name)._actions}
     got = {a.dest: a for a in port_module(name).build_parser()._actions}
