@@ -51,7 +51,10 @@ def real_ends(spec: torch.Tensor) -> torch.Tensor:
     product with a complex ramp or envelope, one built from real numbers)
     goes through this before its inverse."""
     keep = torch.ones(spec.shape[-1], dtype=spec.real.dtype, device=spec.device)
-    keep[0] = keep[-1] = 0.0
+    # slices, not elements: a number written to a slice of a CUDA tensor is
+    # a fill, to one element a copy from the host that waits for the card
+    keep[:1] = 0.0
+    keep[-1:] = 0.0
     return torch.complex(spec.real, spec.imag * keep)
 
 

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from ..device import no_tf32
 from ..ops.correlation import mp_correlate
 from ..ops.norms import unit_norm
+from ..tracing import span
 from .matching_pursuit import SparseCodeResult
 from .cuda_mp import cuda_boundary_update
 from .cuda_fused_mp import (
@@ -138,85 +139,91 @@ def sparse_code_fast(
     n_atoms, atom_size = d2.shape
     dev = signal.device
     geom = fast_geometry(n_samples, atom_size, block)
-    gram = dictionary_gram(d2)
-    fm, bm, residual = encode_state(signal, d2, geom)
-
-    if fused and fused_step_applicable(n_samples, atom_size, block, geom.pad, n_atoms, dev):
-        gram_p = F.pad(gram, (0, 1))   # lag axis zero-padded to 2A
-        del gram
-        whole_loop = whole_loop and depth + 1 <= batch <= 128
-        if pipelined or whole_loop:
+    kernels = fused and fused_step_applicable(n_samples, atom_size, block, geom.pad, n_atoms, dev)
+    whole_loop = kernels and whole_loop and depth + 1 <= batch <= 128
+    with span("mptpu.mp.gram"):
+        gram = dictionary_gram(d2)
+        if kernels:
+            gram = F.pad(gram, (0, 1))   # lag axis zero-padded to 2A
+    with span("mptpu.mp.state"):
+        fm, bm, residual = encode_state(signal, d2, geom)
+        if kernels and (pipelined or whole_loop):
             bm = F.pad(bm, (0, geom.nb_pad - geom.n_blocks), value=TABLE_PAD)
-        kw = geom._asdict()
         if whole_loop and lane_table:
             # first lane of each block's maximum, 0 in the pad columns
             lanes = torch.argmax(fm.reshape(batch, n_atoms, geom.n_blocks, block), dim=-1)
             lanes = F.pad(lanes.to(torch.int32), (0, geom.nb_pad - geom.n_blocks))
-            ev = cuda_fused_encode_lane(
-                fm, bm, lanes, residual, d2, gram_p, n_steps=n_steps, gate_tail=gate_tail, **kw
-            )
-        elif whole_loop:
-            ev = cuda_fused_encode(
-                fm, bm, residual, d2, gram_p, n_steps=n_steps, gate_tail=gate_tail, **kw
-            )
-        else:
-            step = cuda_fused_step_pipelined if pipelined else cuda_fused_step
-            ev = step(fm, bm, residual, d2, gram_p, gate_tail=gate_tail, n_steps=n_steps, **kw)
+
+    if kernels:
+        with span("mptpu.mp.loop"):
+            kw = geom._asdict()
+            if whole_loop and lane_table:
+                ev = cuda_fused_encode_lane(
+                    fm, bm, lanes, residual, d2, gram, n_steps=n_steps, gate_tail=gate_tail, **kw
+                )
+            elif whole_loop:
+                ev = cuda_fused_encode(
+                    fm, bm, residual, d2, gram, n_steps=n_steps, gate_tail=gate_tail, **kw
+                )
+            else:
+                step = cuda_fused_step_pipelined if pipelined else cuda_fused_step
+                ev = step(fm, bm, residual, d2, gram, gate_tail=gate_tail, n_steps=n_steps, **kw)
         return SparseCodeResult(ev[0], ev[1], ev[2], residual[:, None, :n_samples])
-    elif fused:
+    if fused:
         # the fused gate failed: the next-best engine
         block_argmax = True
 
-    A, pad, W = atom_size, geom.pad, geom.W
-    use_pallas = (
-        use_pallas
-        and kernels_usable(dev)
-        and geom.tail_start % A == 0
-        and A % block == 0
-        and n_atoms % 8 == 0
-    )
-    rows = torch.arange(batch, device=dev)
-    tail_starts = n_samples - A + torch.arange(A, device=dev)
-    tail_idx = tail_starts[:, None] + torch.arange(A, device=dev)[None, :]
-    tail_lo = (pad + n_samples - A) // block
-    tail_nblk = (pad + n_samples - 1) // block - tail_lo + 1
+    with span("mptpu.mp.loop"):
+        A, pad, W = atom_size, geom.pad, geom.W
+        use_pallas = (
+            use_pallas
+            and kernels_usable(dev)
+            and geom.tail_start % A == 0
+            and A % block == 0
+            and n_atoms % 8 == 0
+        )
+        rows = torch.arange(batch, device=dev)
+        tail_starts = n_samples - A + torch.arange(A, device=dev)
+        tail_idx = tail_starts[:, None] + torch.arange(A, device=dev)[None, :]
+        tail_lo = (pad + n_samples - A) // block
+        tail_nblk = (pad + n_samples - 1) // block - tail_lo + 1
 
-    out = []
-    for _ in range(n_steps):
-        if block_argmax:
-            midx = torch.argmax(bm.reshape(batch, -1), dim=-1)
-            atom = midx // geom.n_blocks
-            value, position = _refine(fm, atom, midx % geom.n_blocks, block, pad)
-        else:
-            flat = fm.reshape(batch, -1)
-            idx = torch.argmax(flat, dim=-1)
-            value = flat[rows, idx]
-            atom = idx // W
-            position = idx % W - pad
-
-        _subtract_residual(residual, d2, atom, position, value, n_samples)
-        ustart = position + pad - (A - 1)
-        _subtract_window(fm, gram[atom], ustart, value)
-
-        if use_pallas:
-            cuda_boundary_update(fm, bm, residual[:, tail_idx], d2, geom.tail_start, block)
-        else:
-            tail_fm = _tail(residual, d2, n_samples)
-            fm[:, :, geom.tail_start : geom.tail_start + A] = tail_fm
+        out = []
+        for _ in range(n_steps):
             if block_argmax:
-                if geom.tail_start % block == 0 and A % block == 0:
-                    tail_max = tail_fm.reshape(batch, n_atoms, A // block, block).amax(-1)
-                else:
-                    # the tail straddles block edges: reduce from the map
-                    tail_max = fm[:, :, tail_lo * block : (tail_lo + tail_nblk) * block]
-                    tail_max = tail_max.reshape(batch, n_atoms, tail_nblk, block).amax(-1)
-                bm[:, :, tail_lo : tail_lo + tail_nblk] = tail_max
+                midx = torch.argmax(bm.reshape(batch, -1), dim=-1)
+                atom = midx // geom.n_blocks
+                value, position = _refine(fm, atom, midx % geom.n_blocks, block, pad)
+            else:
+                flat = fm.reshape(batch, -1)
+                idx = torch.argmax(flat, dim=-1)
+                value = flat[rows, idx]
+                atom = idx // W
+                position = idx % W - pad
 
-        if block_argmax:
-            ublk0 = torch.clamp(ustart // block, max=geom.n_blocks - geom.upd_blocks)
-            _repair_blocks(fm, bm, ublk0, geom.upd_blocks, block)
+            _subtract_residual(residual, d2, atom, position, value, n_samples)
+            ustart = position + pad - (A - 1)
+            _subtract_window(fm, gram[atom], ustart, value)
 
-        out.append((atom.to(torch.int32), position.to(torch.int32), value))
+            if use_pallas:
+                cuda_boundary_update(fm, bm, residual[:, tail_idx], d2, geom.tail_start, block)
+            else:
+                tail_fm = _tail(residual, d2, n_samples)
+                fm[:, :, geom.tail_start : geom.tail_start + A] = tail_fm
+                if block_argmax:
+                    if geom.tail_start % block == 0 and A % block == 0:
+                        tail_max = tail_fm.reshape(batch, n_atoms, A // block, block).amax(-1)
+                    else:
+                        # the tail straddles block edges: reduce from the map
+                        tail_max = fm[:, :, tail_lo * block : (tail_lo + tail_nblk) * block]
+                        tail_max = tail_max.reshape(batch, n_atoms, tail_nblk, block).amax(-1)
+                    bm[:, :, tail_lo : tail_lo + tail_nblk] = tail_max
 
-    atoms, positions, values = (torch.stack(x) for x in zip(*out))
+            if block_argmax:
+                ublk0 = torch.clamp(ustart // block, max=geom.n_blocks - geom.upd_blocks)
+                _repair_blocks(fm, bm, ublk0, geom.upd_blocks, block)
+
+            out.append((atom.to(torch.int32), position.to(torch.int32), value))
+
+        atoms, positions, values = (torch.stack(x) for x in zip(*out))
     return SparseCodeResult(atoms, positions, values, residual[:, None, :n_samples])

@@ -22,6 +22,7 @@ from ..device import default_device
 from ..ops.correlation import mp_correlate
 from ..ops.kinks import clip
 from ..ops.norms import unit_norm
+from ..tracing import span
 
 
 class SparseCodeResult(NamedTuple):
@@ -200,34 +201,37 @@ def dictionary_learning_step(
     else:
         coded = sparse_code(signal, d3, n_steps=n_steps, approx=approx, use_fft=use_fft)
 
-    atoms, order, bounds = _first_selection_groups(coded.atom_indices)
-    order = torch.from_numpy(order).to(dev)
-    pos = coded.positions.reshape(-1)[order].long()
-    val = coded.values.reshape(-1)[order]
-    # flat offsets into the padded update residual of every event's
-    # (channels, atom_size) window, events grouped by atom
-    row_len = n_samples + atom_size
-    rows = (order % batch)[:, None] * channels + torch.arange(channels, device=dev)
-    flat = rows[:, :, None] * row_len + (pos[:, None] + torch.arange(atom_size, device=dev))[:, None, :]
+    with span("mptpu.learn.groups"):
+        atoms, order, bounds = _first_selection_groups(coded.atom_indices)
+        order = torch.from_numpy(order).to(dev)
+    with span("mptpu.learn.update"):
+        pos = coded.positions.reshape(-1)[order].long()
+        val = coded.values.reshape(-1)[order]
+        # flat offsets into the padded update residual of every event's
+        # (channels, atom_size) window, events grouped by atom
+        row_len = n_samples + atom_size
+        rows = (order % batch)[:, None] * channels + torch.arange(channels, device=dev)
+        flat = rows[:, :, None] * row_len + (pos[:, None] + torch.arange(atom_size, device=dev))[:, None, :]
 
-    padded = torch.nn.functional.pad(signal, (0, atom_size)).contiguous()
-    padded_flat = padded.view(-1)
-    dd = d3.clone()
-    for a, lo, hi in zip(atoms, bounds[:-1], bounds[1:]):
-        idx = flat[lo:hi].reshape(-1)
-        v = val[lo:hi, None, None]
-        # 1) instances rendered with the coding-time atom go back in
-        padded_flat.index_add_(0, idx, (v * dd[a]).reshape(-1))
-        padded[:, :, n_samples:] = 0.0
-        # 2) the new atom: summed residual segments, unit norm
-        summed = padded_flat[idx].reshape(hi - lo, -1).sum(0)
-        new_atom = unit_norm(summed).reshape(channels, atom_size)
-        dd[a] = new_atom
-        # 3) instances rendered with the new atom come out at |value|
-        padded_flat.index_add_(0, idx, (v.abs() * new_atom).reshape(-1), alpha=-1)
-        padded[:, :, n_samples:] = 0.0
+        padded = torch.nn.functional.pad(signal, (0, atom_size)).contiguous()
+        padded_flat = padded.view(-1)
+        dd = d3.clone()
+        for a, lo, hi in zip(atoms, bounds[:-1], bounds[1:]):
+            idx = flat[lo:hi].reshape(-1)
+            v = val[lo:hi, None, None]
+            # 1) instances rendered with the coding-time atom go back in
+            padded_flat.index_add_(0, idx, (v * dd[a]).reshape(-1))
+            padded[:, :, n_samples:] = 0.0
+            # 2) the new atom: summed residual segments, unit norm
+            summed = padded_flat[idx].reshape(hi - lo, -1).sum(0)
+            new_atom = unit_norm(summed).reshape(channels, atom_size)
+            dd[a] = new_atom
+            # 3) instances rendered with the new atom come out at |value|
+            padded_flat.index_add_(0, idx, (v.abs() * new_atom).reshape(-1), alpha=-1)
+            padded[:, :, n_samples:] = 0.0
 
-    d_new = _normalize_dict(dd)
+        d_new = _normalize_dict(dd)
+
     return d_new if d.ndim == 3 else d_new[:, 0, :]
 
 

@@ -25,6 +25,7 @@ import torch
 from ..device import default_device
 from ..ops.decompose import fft_frequency_decompose, fft_frequency_recompose, fft_resample
 from ..ops.norms import unit_norm
+from ..tracing import span
 from .fast_mp import sparse_code_fast
 from .matching_pursuit import (
     SparseCodeResult,
@@ -222,12 +223,14 @@ class MultibandDictionaryLearning:
             band.load(directory)
 
     def learn(self, batch: torch.Tensor, steps: int = 16):
-        bands = fft_frequency_decompose(batch, self.min_size)
+        with span("mptpu.multiband.split"):
+            bands = fft_frequency_decompose(batch, self.min_size)
         for size, band in bands.items():
             self.bands[size].learn(band, steps)
 
     def encode(self, batch: torch.Tensor, steps: int) -> Dict[int, SparseCodeResult]:
-        bands = fft_frequency_decompose(batch, self.min_size)
+        with span("mptpu.multiband.split"):
+            bands = fft_frequency_decompose(batch, self.min_size)
         return {size: band.encode(bands[size], steps) for size, band in self.bands.items()}
 
     def flattened_event_tuples(self, encoding: Dict[int, SparseCodeResult]):
